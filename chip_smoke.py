@@ -3,22 +3,34 @@
     python3 chip_smoke.py            (from the root of the repository)
 
 Builds the port's CUDA kernels from plenum_tpu_torch/csrc/ with nvcc and
-drives the port's write path of one 3PC batch on the card:
+drives the port's paths on the card:
 
-  1. kernels vs plain versions: each kernel's wrapper on CUDA tensors at
-     the main path's shapes, held bit for bit against its plain PyTorch
-     version on the same inputs (tolerance: none — integer arithmetic);
-  2. the slice, end to end: 1,000 signed NYM requests (Max3PCBatchSize)
-     from 1,000 DIDs, 8 of them corrupted, authenticated through
-     make_verifier("cuda"); the accepted requests' txns staged, rooted and
-     committed on a domain ledger pre-filled to 100,003 txns; then one
-     catchup-scale append_batch of 65,536 txns at default thresholds.
-     Roots must equal a hashlib ledger's fed the same txns, proofs must
-     verify, and every kernel's launch counter must have moved;
-  3. times: per kernel, the median of CUDA-event-timed launches after
-     warm-up, its plain version's time, and its bound on this card.
+  1. kernels vs plain versions: each kernel's wrapper (K1-K8) on CUDA
+     tensors at the main paths' shapes, held bit for bit against its
+     plain PyTorch version on the same inputs (tolerance: none — integer
+     arithmetic); K5's tables also hold the same points as K3's;
+  2. path A, slice 1, end to end: 1,000 signed NYM requests
+     (Max3PCBatchSize) from 1,000 DIDs, 8 of them corrupted,
+     authenticated through make_verifier("cuda"); the accepted requests'
+     txns staged, rooted and committed on a domain ledger pre-filled to
+     100,003 txns; then one catchup-scale append_batch of 65,536 txns at
+     default thresholds. Roots must equal a hashlib ledger's fed the same
+     txns, proofs must verify;
+  3. path B, the sharded crypto plane (slice 2): the same 1,000 requests
+     through make_verifier("cuda-sharded") by the byte dispatch and by the
+     limb dispatch (cold, then warm key cache); ShardedCryptoPlane over a
+     4-shard roster wrapped onto the card at grid [2, 1,024] (the batch
+     padded to 1,024 lanes, once per RBFT instance) with 1,024 leaf
+     digests, by step_bytes and step; then graft_entry.dryrun_multichip(4).
+     Verdicts must be exactly the expected ones and roots hashlib's;
+  4. path C, the field-chain probe: x^(2^64) over 2,048 columns;
+  5. times: per kernel, the median of CUDA-event-timed launches after
+     warm-up, its plain version's time, and its bound on this card; the
+     plane's steps and the sharded batches.
 
-Prints JSON lines (kernels, slice, device) and, last, one JSON object
+Each path runs with the launch counters set to 0 just before it and read
+just after; the run fails if a kernel of that path was never launched.
+Prints JSON lines (kernels, paths, device) and, last, one JSON object
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Imports nothing of JAX.
 """
@@ -129,7 +141,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from plenum_tpu_torch import ops
+    from plenum_tpu_torch import graft_entry, ops
     from plenum_tpu_torch.common.request import Request
     from plenum_tpu_torch.common.serialization import pack
     from plenum_tpu_torch.convert import ledger_from_rows
@@ -143,6 +155,10 @@ def main() -> int:
     from plenum_tpu_torch.node.client_authn import CoreAuthNr, ReqAuthenticator
     from plenum_tpu_torch.ops import ed25519 as ed
     from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops.field_chain import field_chain, field_chain_torch
+    from plenum_tpu_torch.parallel.crypto_plane import (
+        ShardedCryptoPlane, ShardedTorchEd25519Verifier)
+    from plenum_tpu_torch.parallel.mesh import lane_roster, make_mesh
     from plenum_tpu_torch.utils.base58 import b58decode, b58encode
 
     dev = torch.device("cuda")
@@ -155,13 +171,27 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_paths = ops.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for name in ("sha256", "ed25519")
-             for ln in ops.build_log(name).splitlines()
-             if "registers" in ln or "spill" in ln]
+    # per kernel: ptxas's register, stack and spill lines
+    ptxas: dict[str, list[str]] = {}
+    kernel = None
+    for name in ("sha256", "ed25519"):
+        for ln in ops.build_log(name).splitlines():
+            m = re.search(r"Function properties for _Z(\d+)(\w+)", ln)
+            if m:       # the mangled name: _Z<length><name><arguments>
+                kernel = m.group(2)[:int(m.group(1))]
+            elif kernel and ("registers" in ln or "spill" in ln):
+                ptxas.setdefault(kernel, []).append(
+                    ln.split(":", 1)[-1].strip())
     print(json.dumps({"build_s": build_s, "ptxas": ptxas}))
 
     rng = np.random.default_rng(20261017)
     max_err: dict[str, int] = {k: 0 for k in ops.LAUNCHES}
+
+    def require_launched(path: str, counts: dict, kernels) -> None:
+        unlaunched = [k_ for k_ in kernels if counts[k_] == 0]
+        if unlaunched:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"path: {unlaunched}")
 
     def bit_equal(kernel: str, got: torch.Tensor, want: torch.Tensor) -> None:
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -214,7 +244,7 @@ def main() -> int:
     # K1: 1,024 NYM-txn leaves (0x00 || pack(txn)), one launch per block count
     leaves = [txn_to_leaf(new_txn(NYM, dict(r.operation), request=r))
               for r in reqs] + [txn_to_leaf(new_txn(NYM, {"dest": "x" * i}))
-                                for i in range(24)]
+                                for i in range(1024 - n_req)]
     buckets: dict[int, list[bytes]] = {}
     for leaf in leaves:
         buckets.setdefault(sha.n_blocks_for(len(leaf) + 1), []).append(leaf)
@@ -233,10 +263,6 @@ def main() -> int:
     left, right = rand_words(1024), rand_words(1024)
     bit_equal("sha256_interior", sha.hash_interior(left, right),
               sha.hash_interior_torch(left, right))
-    level = left
-    while level.shape[0] > 1:
-        level = sha.hash_interior_torch(level[0::2], level[1::2])
-    bit_equal("sha256_interior", sha.merkle_reduce_pow2(left), level[0])
     bounds = rand_words(10)
     for pattern in ([0] * 10, [1] * 10, [0, 1] * 5, [1, 0] * 5,
                     rng.integers(0, 2, 10).tolist()):
@@ -292,6 +318,53 @@ def main() -> int:
     got4[idxs4] = ok4.cpu().numpy()
     if got4.tolist() != want4:
         raise AssertionError("ed25519_verify verdicts differ from the expected")
+    # K5: tables from the slice's keys as the limb dispatch stages them
+    # (ext_quarters rows), and the same points as K3's from the key bytes
+    collector = CoreAuthNr(verifier, verkeys.get)
+    auth_items = []
+    for r in reqs:
+        auth_items.extend(collector.collect_items(r) or [])
+    limb_v = make_verifier("cuda")
+    limb_v._compressed_dispatch = False
+    idxs5, staged5 = limb_v.stage_limbs(auth_items)
+    sd5, hd5, aq5, ix5, ry5, rs5 = ed.stage_on(dev, *staged5)
+    tables5 = ed.quarter_tables(aq5)
+    bit_equal("ed25519_quarter_tables", tables5, ed.quarter_tables_torch(aq5))
+    _, (_, _, keys5_u8, _, _) = verifier.stage_bytes(auth_items)
+    _, tables3, valid3 = ed.decompress_kernel(keys5_u8)
+    if keys5_u8.shape[0] != aq5.shape[0] or not bool(valid3.all()):
+        raise AssertionError("limb and byte staging disagree on the keys")
+    # affine equality mod p, cross-multiplied: X5 Z3 = X3 Z5, likewise Y
+    # and 2dT (the two chains reach different projective Z)
+    t5, t3 = tables5.long(), tables3.long()
+    for c in (0, 1, 3):
+        if not torch.equal(
+                ed.fe_canon(ed.fe_mul(t5[..., c, :], t3[..., 2, :])),
+                ed.fe_canon(ed.fe_mul(t3[..., c, :], t5[..., 2, :]))):
+            raise AssertionError("K5's tables hold other points than K3's")
+    del t5, t3
+    # K6: the slice's batch staged by the limb dispatch
+    ok6 = ed.verify_staged(sd5, hd5, ry5, rs5, ix5, tables5)
+    bit_equal("ed25519_verify_staged", ok6,
+              ed.verify_staged_torch(sd5, hd5, ry5, rs5, ix5, tables5))
+    got6 = np.zeros(len(auth_items), dtype=bool)
+    got6[idxs5] = ok6.cpu().numpy()
+    if got6.tolist() != expect.tolist():
+        raise AssertionError("ed25519_verify_staged verdicts differ from the "
+                             "expected ones")
+    # K7: roots at N = 1,024 (one block level, then the block roots) and
+    # 65,536 (128 blocks, then one block over their roots)
+    for n_leaves in (1024, 65536):
+        w = rand_words(n_leaves)
+        bit_equal("merkle_reduce", sha.merkle_reduce_pow2(w),
+                  sha.merkle_reduce_pow2_torch(w))
+    # K8: the probe's shape, N = 2,048 columns, k = 64
+    chain_vals = [int.from_bytes(rng.bytes(32), "little") % ed.P
+                  for _ in range(2048)]
+    chain_x = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [ed.int_to_limbs(v) for v in chain_vals]).T)).to(dev)
+    bit_equal("field_chain", field_chain(chain_x, 64),
+              field_chain_torch(chain_x, 64))
     torch.cuda.synchronize()
     phase1_s = time.perf_counter() - t0 - sign_s
 
@@ -363,10 +436,9 @@ def main() -> int:
     if catchup.root_hash != reference.root_hash:
         raise AssertionError("65,536-append root differs from the hashlib "
                              "ledger's")
-    unlaunched = [k_ for k_, v in main_counts.items() if v == 0]
-    if unlaunched:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{unlaunched}")
+    require_launched("slice", main_counts,
+                     ("sha256_words", "sha256_interior", "ed25519_decompress",
+                      "ed25519_verify"))
     print(json.dumps({"slice": {
         "requests": n_req, "accepted": int(verdicts.sum()),
         "ledger_size_before": n_pre, "ledger_size_after": catchup.size,
@@ -376,6 +448,101 @@ def main() -> int:
         "launches_per_1000_txn_batch": batch_counts,
         "launches_main_path": main_counts,
         "sign_s": sign_s, "phase1_s": phase1_s, "prefill_s": prefill_s}}))
+
+    # --- path B: the sharded crypto plane ---------------------------------
+    def hashlib_root(digests: list) -> bytes:
+        while len(digests) > 1:
+            digests = [hashlib.sha256(b"\x01" + digests[i] + digests[i + 1])
+                       .digest() for i in range(0, len(digests), 2)]
+        return digests[0]
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t_sharded = time.perf_counter()
+    sharded = make_verifier("cuda-sharded")
+    authnr_s = ReqAuthenticator()
+    authnr_s.register_authenticator(
+        CoreAuthNr(verifier=sharded, get_verkey=verkeys.get))
+    auth_s = {}
+    for run, compressed in (("bytes", True), ("limbs_cold", False),
+                            ("limbs_warm", False)):
+        sharded._compressed_dispatch = compressed
+        got, auth_s[run] = sync_s(lambda: authnr_s.authenticate_batch(reqs))
+        if got.tolist() != expect.tolist():
+            raise AssertionError(f"cuda-sharded {run} verdicts differ from "
+                                 f"the expected ones")
+    if sharded.dispatches != 3 or len(sharded._pt_cache) != n_req:
+        raise AssertionError("cuda-sharded: dispatches or key cache off")
+    # the plane at grid [2, 1,024] over a 4-shard roster on this card
+    roster = lane_roster(4)
+    plane = ShardedCryptoPlane(make_mesh(4, roster))
+    pad_v = ShardedTorchEd25519Verifier(plane, min_batch=1024)
+    leaf_digests = [hashlib.sha256(b"\x00" + m).digest() for m in leaves]
+    want_root = hashlib_root(leaf_digests)
+    plane_leaves = sha.to_tensor(sha.bytes_to_digests(leaf_digests), dev)
+    idxs_pb, staged_pb = pad_v.stage_bytes(auth_items)
+    s_g, h_g, k_g, ix_g, r_g = staged_pb
+    args_pb = (torch.stack([s_g, s_g]), torch.stack([h_g, h_g]), k_g,
+               torch.stack([ix_g, ix_g]), torch.stack([r_g, r_g]),
+               plane_leaves)
+    idxs_pl, staged_pl = pad_v.stage_limbs(auth_items)
+    sd_g, hd_g, aq_g, ixl_g, ry_g, rs_g = ed.stage_on(dev, *staged_pl)
+    args_pl = (torch.stack([sd_g, sd_g], dim=1),
+               torch.stack([hd_g, hd_g], dim=2), aq_g,
+               torch.stack([ixl_g, ixl_g]), torch.stack([ry_g, ry_g]),
+               torch.stack([rs_g, rs_g]), plane_leaves)
+    plane_out = {}
+    for step, idxs_g, args in (("step_bytes", idxs_pb, args_pb),
+                               ("step", idxs_pl, args_pl)):
+        (ok_g, root_g, n_ok_g), plane_s = sync_s(
+            lambda: getattr(plane, step)(*args))
+        if tuple(ok_g.shape) != (2, 1024):
+            raise AssertionError(f"{step}: ok shape {list(ok_g.shape)}")
+        for inst in range(2):
+            got = np.zeros(n_req, dtype=bool)
+            got[idxs_g] = ok_g[inst, :len(idxs_g)].cpu().numpy()
+            if got.tolist() != expect.tolist():
+                raise AssertionError(f"{step}: instance {inst} verdicts "
+                                     f"differ from the expected ones")
+        if sha.digests_to_bytes(root_g[None]) != [want_root]:
+            raise AssertionError(f"{step}: root differs from hashlib's")
+        if int(n_ok_g) != int(ok_g.sum()):
+            raise AssertionError(f"{step}: n_ok is not the verdict count")
+        plane_out[step] = {"lanes_staged": len(idxs_g),
+                           "n_ok": int(n_ok_g), "first_call_s": plane_s}
+    graft_entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    t_sharded_end = time.perf_counter()
+    sharded_counts = dict(ops.LAUNCHES)
+    require_launched("sharded", sharded_counts,
+                     ("ed25519_decompress", "ed25519_verify",
+                      "ed25519_quarter_tables", "ed25519_verify_staged",
+                      "merkle_reduce"))
+    print(json.dumps({"sharded_path": {
+        "roster": [str(d) for d in roster], "mesh": plane.mesh.shape,
+        "cuda_sharded_mesh": sharded._plane.mesh.shape,
+        "authenticate_s": auth_s, "plane": plane_out,
+        "path_s": t_sharded_end - t_sharded,
+        "launches": sharded_counts}}))
+
+    # --- path C: the field-chain probe (its own microbench entry) ---------
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    chain_out = field_chain(chain_x, 64)
+    torch.cuda.synchronize()
+    probe_counts = dict(ops.LAUNCHES)
+    require_launched("probe", probe_counts, ("field_chain",))
+    chain_host = chain_out.cpu().numpy()
+    for j in range(4):
+        if ed.limbs_to_int(chain_host[:, j]) != pow(chain_vals[j], 2**64, ed.P):
+            raise AssertionError("field_chain disagrees with Python's pow")
 
     # --- phase 3: times at the slice's shapes ------------------------------
     def median_ms(fn, reps: int, warm: int = 2) -> float:
@@ -394,10 +561,6 @@ def main() -> int:
         return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
     # the 1,000-request batch's own inputs
-    collector = CoreAuthNr(verifier, verkeys.get)
-    auth_items = []
-    for r in reqs:
-        auth_items.extend(collector.collect_items(r) or [])
     _, (s_u8, h_u8, k_u8, idx_m, r_u8) = verifier.stage_bytes(auth_items)
     _, tables_m, valid_m = ed.decompress_kernel(k_u8)
     batch_leaves = [b"\x00" + txn_to_leaf(t) for t in txns]
@@ -434,8 +597,9 @@ def main() -> int:
     inv = 254 * mul["sq"] + 11 * mul["mul"]
     pow58 = 251 * mul["sq"] + 11 * mul["mul"]
     verify_muls = 64 * dbl + 64 * add_t2d + 32 * madd + inv + 2 * mul["mul"]
-    decomp_muls = (pow58 + 4 * mul["sq"] + 8 * mul["mul"] + 192 * dbl
-                   + 4 * (7 * (dbl + add_full) + 16 * mul["mul"]))
+    table_muls = 4 * (7 * (dbl + add_full) + 16 * mul["mul"])
+    decomp_muls = pow58 + 4 * mul["sq"] + 8 * mul["mul"] + 192 * dbl \
+        + table_muls
 
     def insns(prof: dict, groups) -> dict:
         """Thread-instructions per pipe of (items, loop passes) groups."""
@@ -459,6 +623,9 @@ def main() -> int:
     k2_insns = insns(sass_k2, [(1024 >> (lv + 1), 0) for lv in range(10)])
     n_sigs, n_keys = s_u8.shape[0], k_u8.shape[0]
     table_bytes = tables_m.numel() * 4
+    comb_bytes = ed.comb_table_device(dev).numel() * 4
+    n_rows5, n_sigs6 = aq5.shape[0], sd5.shape[1]
+    k7_insns = insns(sass_k2, [(1023, 0)])
     rows = [
         ("K1", "sha256_words", "plenum_tpu_torch/csrc/sha256.cu",
          "plenum_tpu/ops/sha256.py:87",
@@ -486,19 +653,54 @@ def main() -> int:
          lambda: ed.verify_tables(s_u8, h_u8, r_u8, idx_m, tables_m, valid_m),
          lambda: ed.verify_tables_torch(s_u8, h_u8, r_u8, idx_m, tables_m,
                                         valid_m),
-         bound(n_sigs * (3 * 32 + 4 + 1) + table_bytes + n_keys
-               + ed.comb_table_device(dev).numel() * 4,
+         bound(n_sigs * (3 * 32 + 4 + 1) + table_bytes + n_keys + comb_bytes,
                2 * n_sigs * verify_muls / per_pipe_per_s),
          {"signatures": n_sigs, "keys": n_keys, "launches_per_call": 1}),
+        ("K5", "ed25519_quarter_tables", "plenum_tpu_torch/csrc/ed25519.cu",
+         "plenum_tpu/ops/ed25519.py:627",
+         lambda: ed.quarter_tables(aq5),
+         lambda: ed.quarter_tables_torch(aq5),
+         bound(aq5.numel() * 4 + tables5.numel() * 4,
+               2 * n_rows5 * table_muls / per_pipe_per_s),
+         {"key_rows": n_rows5, "launches_per_call": 1}),
+        ("K6", "ed25519_verify_staged", "plenum_tpu_torch/csrc/ed25519.cu",
+         "plenum_tpu/ops/ed25519.py:475",
+         lambda: ed.verify_staged(sd5, hd5, ry5, rs5, ix5, tables5),
+         lambda: ed.verify_staged_torch(sd5, hd5, ry5, rs5, ix5, tables5),
+         bound(n_sigs6 * ((32 + 64 + 20 + 1 + 1) * 4 + 1)
+               + tables5.numel() * 4 + comb_bytes,
+               2 * n_sigs6 * verify_muls / per_pipe_per_s),
+         {"signatures": n_sigs6, "key_rows": n_rows5, "launches_per_call": 1}),
+        ("K7", "merkle_reduce", "plenum_tpu_torch/csrc/sha256.cu",
+         "plenum_tpu/ops/sha256.py:129",
+         lambda: sha.merkle_reduce_pow2(plane_leaves),
+         lambda: sha.merkle_reduce_pow2_torch(plane_leaves),
+         bound(1024 * 32 + 32, op_time(k7_insns)),
+         {"leaves": 1024, "parents": 1023, "launches_per_call": 2}),
+        ("K8", "field_chain", "plenum_tpu_torch/csrc/ed25519.cu",
+         "probes/pallas_sqr_experiment.py:57",
+         lambda: field_chain(chain_x, 64),
+         lambda: field_chain_torch(chain_x, 64),
+         bound(2 * chain_x.numel() * 4,
+               2 * 2048 * 64 * mul["sq"] / per_pipe_per_s),
+         {"columns": 2048, "k": 64, "launches_per_call": 1}),
     ]
+    path_counts = {"slice": main_counts, "sharded": sharded_counts,
+                   "probe": probe_counts}
+    path_of = {"K1": "slice", "K2": "slice", "K3": "slice", "K4": "slice",
+               "K5": "sharded", "K6": "sharded", "K7": "sharded",
+               "K8": "probe"}
     kernels = []
     for kid, name, src, replaces, fn, plain, (b_ms, b_by), shape in rows:
         kernels.append({
             "id": kid, "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": main_counts[name], "max_abs_err": max_err[name],
+            "launches": path_counts[path_of[kid]][name],
+            "max_abs_err": max_err[name],
             "ms": median_ms(fn, 20), "plain_ms": median_ms(plain, 3, warm=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "path": path_of[kid],
+            "launches_by_path": {p_: c_[name] for p_, c_ in path_counts.items()},
             "launches_per_1000_txn_batch": batch_counts[name], "shape": shape})
     print(json.dumps({"bound_basis": {
         "alu_or_fma_pipe_per_s": per_pipe_per_s, "issue_per_s": issue_per_s,
@@ -512,6 +714,9 @@ def main() -> int:
         "k1_thread_insns": k1_insns, "k2_thread_insns": k2_insns,
         "verify_wide_muls_per_sig": verify_muls,
         "decompress_wide_muls_per_key": decomp_muls,
+        "table_wide_muls_per_key_row": table_muls,
+        "field_sq_wide_muls": mul["sq"],
+        "k7_thread_insns": k7_insns,
         "wide_mul_fma_slots": 2}}))
     # B1 as one call (K3 then K4), the reference's verify_kernel_bytes
     b1_ms = median_ms(lambda: ed.verify_kernel_bytes(s_u8, h_u8, k_u8, idx_m,
@@ -521,6 +726,40 @@ def main() -> int:
     print(json.dumps({"verify_kernel_bytes": {
         "signatures": n_sigs, "keys": n_keys, "ms": b1_ms, "plain_ms": b1_plain,
         "bound_ms": kernels[2]["bound_ms"] + kernels[3]["bound_ms"]}}))
+    # B3 as one call (K5 then K6), the reference's verify_kernel_indexed
+    b3_ms = median_ms(lambda: ed.verify_kernel_indexed(sd5, hd5, aq5, ix5,
+                                                       ry5, rs5), 20)
+    b3_plain = median_ms(lambda: ed.verify_staged_torch(
+        sd5, hd5, ry5, rs5, ix5, ed.quarter_tables_torch(aq5)), 3, warm=1)
+    print(json.dumps({"verify_kernel_indexed": {
+        "signatures": n_sigs6, "key_rows": n_rows5, "ms": b3_ms,
+        "plain_ms": b3_plain,
+        "bound_ms": kernels[4]["bound_ms"] + kernels[5]["bound_ms"]}}))
+    # B5: hash_interior, K2 on 1,024 interleaved pairs (one launch)
+    b5_ms = median_ms(lambda: sha.hash_interior(left, right), 20)
+    b5_plain = median_ms(lambda: sha.hash_interior_torch(left, right), 3,
+                         warm=1)
+    b5_bound = bound(1024 * 64 + 1024 * 32,
+                     op_time(insns(sass_k2, [(1024, 0)])))
+    print(json.dumps({"hash_interior": {
+        "pairs": 1024, "ms": b5_ms, "plain_ms": b5_plain,
+        "bound_ms": b5_bound[0], "bound_by": b5_bound[1],
+        "launches_per_call": 1}}))
+    # K7 at 65,536 leaves (two launches: 128 blocks, then one)
+    leaves_64k = rand_words(65536)
+    k7_64k = bound(65536 * 32 + 32,
+                   op_time(insns(sass_k2, [(65535, 0)])))
+    print(json.dumps({"merkle_reduce_65536": {
+        "ms": median_ms(lambda: sha.merkle_reduce_pow2(leaves_64k), 20),
+        "plain_ms": median_ms(
+            lambda: sha.merkle_reduce_pow2_torch(leaves_64k), 3, warm=1),
+        "bound_ms": k7_64k[0], "bound_by": k7_64k[1]}}))
+    # B8: the plane's steps at grid [2, 1,024] on the 4-shard roster
+    print(json.dumps({"plane_steps": {
+        "grid": [2, 1024], "shards": 4, "leaves": 1024,
+        "step_bytes_ms": median_ms(lambda: plane.step_bytes(*args_pb), 10),
+        "step_ms": median_ms(lambda: plane.step(*args_pl), 10),
+        "sharded_authenticate_s": auth_s}}))
 
     # --- where one batch's time goes: host vs device -----------------------
     # from the timings above: each kernel's per-launch time times its

@@ -1,7 +1,10 @@
-"""Carry a ledger's state across from the JAX package into the port.
+"""Carry state across from the JAX package into the port.
 
-The state of this system is its ledgers: a txn log and a Merkle hash
-store, each a key/value store of bytes. Both packages lay the rows out
+The state of this system is its ledgers, and, for the limb-staged
+Ed25519 dispatch, a verifier's cache of staged keys.
+
+Ledgers: a txn log and a Merkle hash store, each a key/value store of
+bytes. Both packages lay the rows out
 identically (txn log: 8-byte big-endian seq_no -> msgpack txn; hash
 store: `l<idx>` leaves and `n<level><idx>` interior nodes -> 32-byte
 digests), so carrying a ledger across is copying its rows. The port's
@@ -10,7 +13,9 @@ appending from the same root.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Mapping, Optional
+
+import numpy as np
 
 from plenum_tpu_torch.ledger.compact_merkle_tree import CompactMerkleTree
 from plenum_tpu_torch.ledger.hash_store import HashStore
@@ -37,3 +42,24 @@ def ledger_from_rows(txn_rows: Rows, hash_rows: Rows,
         kv.put(bytes(key), bytes(value))
     tree = CompactMerkleTree(hasher or TreeHasher(), HashStore(kv))
     return Ledger(tree=tree, txn_log=log)
+
+
+def verifier_cache_from_reference(rows: Mapping[bytes, Optional[np.ndarray]],
+                                  verifier):
+    """Seed a port verifier's staged-key cache (`_pt_cache`) from a
+    reference verifier's: verkey -> int32[4, 4, 20] quarter-point rows of
+    -A in 13-bit limbs, or None for an invalid key. Both packages stage
+    the same arrays, so the rows are copied as they are; the verifier's
+    FIFO bound holds (the oldest entries go first). -> the verifier."""
+    cache = verifier._pt_cache
+    for vk, quarters in rows.items():
+        if quarters is not None:
+            quarters = np.array(quarters, dtype=np.int32)
+            if quarters.shape != (4, 4, 20):
+                raise ValueError(f"staged rows of {bytes(vk).hex()}: want "
+                                 f"int32[4, 4, 20], got {quarters.shape}")
+        cache.pop(bytes(vk), None)
+        if len(cache) >= verifier._cache_size:
+            cache.pop(next(iter(cache)))
+        cache[bytes(vk)] = quarters
+    return verifier

@@ -265,22 +265,81 @@ class CpuEd25519Verifier(Ed25519Verifier):
 class TorchEd25519Verifier(Ed25519Verifier):
     """Batched device verification (the JAX package's JaxEd25519Verifier).
 
-    Host prep per item: split sig into (R, S); reject S >= L; h =
-    SHA512(R||A||M) mod L; dedup the verkeys into a key table plus an index
-    per signature. Everything ships as raw bytes (32 B S + 32 B h + 32 B R
-    + 4 B key index per signature, 32 B per distinct verkey); the device
-    decompresses each distinct key once and builds its window tables (K3),
-    then runs one ladder per signature (K4). R is never decompressed — the
-    kernel compares the recomputed R' as bytes (ref10 semantics).
+    Two dispatches, as in the reference, chosen by `_compressed_dispatch`:
 
-    `device` is where the batch runs: a CUDA device launches the kernels,
-    "cpu" runs their plain versions; None means the card, and raises when
-    there is none. Batches are not padded: without an XLA-style compile
-    per shape, padding would only add work.
+    - bytes (the default): host prep per item is split sig into (R, S),
+      reject S >= L, h = SHA512(R||A||M) mod L, and dedup the verkeys
+      into a key table plus an index per signature. Everything ships as
+      raw bytes (32 B S + 32 B h + 32 B R + 4 B key index per signature,
+      32 B per distinct verkey); the device decompresses each distinct
+      key once and builds its window tables (K3), then runs one ladder
+      per signature (K4). R is never decompressed — the kernel compares
+      the recomputed R' as bytes (ref10 semantics).
+    - limbs: the host decompresses each new verkey and stages -A's
+      quarter points as 13-bit limb rows (`ext_quarters`, ~1 ms of
+      pure Python per key, cached FIFO-bounded in `_pt_cache`), and the
+      signature's digit arrays; the device builds the tables from the
+      rows (K5) and runs the same ladder on the staged digits (K6).
+
+    Both give the same verdict on every input. `device` is where the
+    batch runs: a CUDA device launches the kernels, "cpu" runs their
+    plain versions; None means the card, and raises when there is none.
+    Batches are not padded (`_pad` does nothing here): without an
+    XLA-style compile per shape, padding would only add work. The
+    sharded verifier pads, since its grid must tile.
     """
 
-    def __init__(self, device=None):
+    _compressed_dispatch = True
+
+    def __init__(self, device=None, cache_size: int = 65536):
         self.device = ops.resolve_device(device)
+        # verkeys are attacker-supplied; the cache must be bounded (FIFO
+        # evict). value: int32[4, 4, 20] quarter-point rows, or None for
+        # invalid keys
+        self._pt_cache: dict[bytes, Optional[np.ndarray]] = {}
+        self._cache_size = cache_size
+
+    # --- the limb path's key cache ----------------------------------------
+
+    def _neg_a_limbs(self, vk: bytes) -> Optional[np.ndarray]:
+        if vk in self._pt_cache:
+            return self._pt_cache[vk]
+        a = _ops.decompress(vk)
+        if a is None:
+            rows = None
+        else:
+            neg = ((_ops.P - a[0]) % _ops.P, a[1])         # -A = (-x, y)
+            rows = _ops.ext_quarters(neg)
+        if len(self._pt_cache) >= self._cache_size:
+            self._pt_cache.pop(next(iter(self._pt_cache)))
+        self._pt_cache[vk] = rows
+        return rows
+
+    def _decompress_cached(self, vk: bytes):
+        """Cached decompression of a verkey -> affine A, or None."""
+        rows = self._neg_a_limbs(vk)
+        if rows is None:
+            return None
+        x = _ops.limbs_to_int(rows[0, 0])
+        y = _ops.limbs_to_int(rows[0, 1])
+        return ((_ops.P - x) % _ops.P, y)
+
+    def evict_key(self, vk) -> None:
+        """Key rotation: drop a rotated-out verkey's staged rows."""
+        if isinstance(vk, bytes):
+            self._pt_cache.pop(vk, None)
+
+    def rewarm(self) -> None:
+        """Drop the staged key material so the next dispatch re-stages
+        it (after a device restart the host cache describes uploads the
+        device no longer holds)."""
+        self._pt_cache.clear()
+
+    def _pad(self, per_sig: list, keys: list) -> None:
+        """Hook to pad the staged per-signature lists and the key list in
+        place; the sharded verifier pads, this one does not."""
+
+    # --- staging ------------------------------------------------------------
 
     def stage_bytes(self, items: Sequence[VerifyItem]):
         """Host staging: per item one sha512 + one mod-L reduction.
@@ -320,21 +379,102 @@ class TorchEd25519Verifier(Ed25519Verifier):
             a_idx.append(u)
         if not idxs:
             return idxs, None
+        self._pad([s_vals, h_vals, r_enc, a_idx], u_keys)
         return idxs, (self._rows(s_vals), self._rows(h_vals),
                       self._rows(u_keys),
                       torch.tensor(a_idx, dtype=torch.int32).to(self.device),
                       self._rows(r_enc))
 
+    def stage_limbs(self, items: Sequence[VerifyItem]):
+        """Host staging of the limb dispatch (the reference's
+        `_dispatch_limbs`): -> (idxs, arrays), arrays the numpy inputs
+        (s_digits int32[32, M], h_digits int32[16, 4, M], aq_unique
+        int32[U, 4, 4, 20], idx int32[M], ry int32[M, 20], r_sign
+        int32[M]), or None when no item reaches the device. Items under
+        an invalid verkey are screened here, on the host."""
+        idxs, s_vals, h_vals, r_enc = [], [], [], []
+        # verkeys repeat heavily in pool traffic: ship one row per
+        # DISTINCT key plus an index vector, gathered on device
+        uniq: dict[bytes, int] = {}
+        u_rows: list[np.ndarray] = []
+        a_idx: list[int] = []
+        for i, (msg, sig, vk) in enumerate(items):
+            try:
+                msg, sig, vk = bytes(msg), bytes(sig), bytes(vk)
+                if len(sig) != 64 or len(vk) != 32:
+                    continue
+                rows = self._neg_a_limbs(vk)
+                if rows is None:
+                    continue
+                s = int.from_bytes(sig[32:], "little")
+                if s >= _ops.L:
+                    continue
+                h = int.from_bytes(
+                    hashlib.sha512(sig[:32] + vk + msg).digest(),
+                    "little") % _ops.L
+            except Exception:
+                continue    # contract: malformed input is a False verdict
+            u = uniq.get(vk)
+            if u is None:
+                u = uniq[vk] = len(u_rows)
+                u_rows.append(rows)
+            idxs.append(i)
+            s_vals.append(s)
+            h_vals.append(h)
+            a_idx.append(u)
+            r_enc.append(sig[:32])
+        if not idxs:
+            return idxs, None
+        self._pad([s_vals, h_vals, a_idx, r_enc], u_rows)
+        qmask = (1 << _ops.QUARTER_SHIFT) - 1
+        s_digits = _ops.scalar_windows(s_vals, _ops.N_COMB, _ops.CBITS)
+        h_digits = np.stack([
+            _ops.scalar_windows(
+                [(h >> (_ops.QUARTER_SHIFT * q)) & qmask for h in h_vals],
+                _ops.N_WIN)
+            for q in range(_ops.N_QUARTERS)], axis=1)   # [N_WIN, 4, m]
+        ry, r_sign = _ops.r_bytes_to_limbs(r_enc)
+        return idxs, (s_digits, h_digits, np.stack(u_rows),
+                      np.asarray(a_idx, dtype=np.int32), ry, r_sign)
+
+    # --- dispatch -------------------------------------------------------------
+
+    def _dispatch(self, items: Sequence[VerifyItem]):
+        if self._compressed_dispatch:
+            return self._dispatch_bytes(items)
+        return self._dispatch_limbs(items)
+
     def _dispatch_bytes(self, items: Sequence[VerifyItem]):
         idxs, staged = self.stage_bytes(items)
+        return self._launch(len(items), idxs, staged,
+                            self._device_verify_bytes)
+
+    def _dispatch_limbs(self, items: Sequence[VerifyItem]):
+        idxs, staged = self.stage_limbs(items)
+        return self._launch(len(items), idxs, staged, self._device_verify)
+
+    @staticmethod
+    def _launch(n: int, idxs, staged, device_verify):
         if staged is None:
-            return np.zeros(len(items), dtype=bool)   # all malformed: ready
-        ok = _ops.verify_kernel_bytes(*staged)
+            return np.zeros(n, dtype=bool)     # all malformed: ready
+        ok = device_verify(*staged)
         event = None
         if ok.is_cuda:
             event = torch.cuda.Event()
-            event.record()
-        return _DeviceToken(ok, event, idxs, len(items))
+            event.record(torch.cuda.current_stream(ok.device))
+        return _DeviceToken(ok, event, idxs, n)
+
+    def _device_verify_bytes(self, s_u8, h_u8, k_u8, idx, r_u8):
+        """Staged byte tensors -> flat verdicts (K3 then K4)."""
+        return _ops.verify_kernel_bytes(s_u8, h_u8, k_u8, idx, r_u8)
+
+    def _device_verify(self, s_digits, h_digits, aq_unique, idx, ry, r_sign):
+        """Staged limb arrays -> flat verdicts (K5 then K6). Subclasses
+        re-route the dispatch (the sharded verifier cuts it over a mesh);
+        the host staging is the same either way."""
+        return _ops.verify_kernel_indexed(
+            *_ops.stage_on(self.device, s_digits, h_digits, aq_unique, idx,
+                           ry, r_sign))
 
     def _rows(self, rows: list[bytes]) -> torch.Tensor:
         raw = np.frombuffer(b"".join(rows), np.uint8).reshape(len(rows), 32)
@@ -343,7 +483,7 @@ class TorchEd25519Verifier(Ed25519Verifier):
     # verify_batch = submit + blocking collect; submit_batch returns right
     # after the (asynchronous) kernel launches
     def submit_batch(self, items: Sequence[VerifyItem]):
-        return self._dispatch_bytes(items)
+        return self._dispatch(items)
 
     def collect_batch(self, token, wait: bool = True) -> Optional[np.ndarray]:
         if isinstance(token, np.ndarray):
@@ -352,7 +492,7 @@ class TorchEd25519Verifier(Ed25519Verifier):
             return None
         ok = token.ok.cpu().numpy()
         verdict = np.zeros(token.n, dtype=bool)
-        verdict[token.idxs] = ok
+        verdict[token.idxs] = ok[:len(token.idxs)]     # pad rows dropped
         return verdict
 
     def verify_batch(self, items: Sequence[VerifyItem]) -> np.ndarray:
@@ -520,18 +660,34 @@ class CoalescingVerifier(Ed25519Verifier):
 def make_verifier(backend: str = "cuda") -> Ed25519Verifier:
     """The verifier for a backend name:
 
-      "cuda"   the kernels on the card (the default); raises without a GPU
-      "torch"  the kernels' plain PyTorch versions on the CPU (tests)
-      "cpu"    the host baseline: the C library, or the pure-Python RFC
-               8032 verifier where `cryptography` is absent
+      "cuda"          the kernels on the card (the default); raises
+                      without a GPU
+      "cuda-sharded"  the sharded crypto plane over every CUDA device
+                      (parallel/crypto_plane.py; "jax-sharded" in the
+                      reference); raises without a GPU
+      "torch"         the kernels' plain PyTorch versions on the CPU (tests)
+      "torch-sharded" the sharded plane's plain versions over four
+                      explicit CPU shards (tests)
+      "cpu"           the host baseline: the C library, or the
+                      pure-Python RFC 8032 verifier where `cryptography`
+                      is absent
 
-    The device verifier comes bare: no supervisor and no CPU breaker —
-    a failed launch raises instead of degrading silently."""
+    The sharded backends pad every batch to a power of two, so that it
+    tiles their mesh. The device verifiers come bare: no supervisor and
+    no CPU breaker — a failed launch raises instead of degrading
+    silently."""
     if backend == "cuda":
         return TorchEd25519Verifier(device="cuda")
     if backend == "torch":
         return TorchEd25519Verifier(device="cpu")
+    if backend in ("cuda-sharded", "torch-sharded"):
+        # deferred: parallel/ is not needed by the single-device backends
+        from plenum_tpu_torch.parallel.crypto_plane import \
+            make_sharded_verifier
+        if backend == "cuda-sharded":
+            return make_sharded_verifier()
+        return make_sharded_verifier(devices=["cpu"] * 4)
     if backend == "cpu":
         return CpuEd25519Verifier()
-    raise ValueError(f"unknown Ed25519 backend {backend!r} "
-                     "(want 'cuda', 'torch' or 'cpu')")
+    raise ValueError(f"unknown Ed25519 backend {backend!r} (want 'cuda', "
+                     "'cuda-sharded', 'torch', 'torch-sharded' or 'cpu')")

@@ -17,6 +17,7 @@
 // Device functions under nvcc; plain inline C++ otherwise, so the same code
 // also compiles for the host for a differential check without a GPU.
 #pragma once
+#include <cstddef>
 #include <cstdint>
 
 #ifdef __CUDACC__
@@ -248,6 +249,48 @@ FE_HD fe fe_from_bytes(const uint8_t* b) {
     h.v[i] = (int32_t)((v >> (pos[i] % 8)) & ((1u << fe_bits(i)) - 1));
   }
   return h;
+}
+
+// The JAX package's layout: 20 signed 13-bit limbs, limb i at bit 13 i,
+// "carried" (each in [-2, 2^13 + 3]) or canonical. l[i * stride] is limb
+// i, so one reader serves row-major rows (stride 1) and limb-major
+// columns (stride N). The value sum l_i 2^(13 i) is gathered into the
+// ten limbs as they sit (13-bit limb i lands in limb j with FE_POS[j] <=
+// 13 i, shifted by at most 17 bits, so a sum stays below 2^31 in int64),
+// then fe_from64's three carry passes bring it to carried form; the bits
+// at 2^255 and above wrap as 19 through limb 9's carry. Signs are kept:
+// a borrowed limb is a negative term, never masked.
+FE_HD fe fe_from_limbs13(const int32_t* l, int stride) {
+  const int pos[10] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230};
+  int64_t t[10];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 20; ++i) {
+    int b = 13 * i, j = 9;
+#pragma unroll
+    for (int k = 9; k > 0; --k)
+      if (b < pos[k]) j = k - 1;
+    t[j] += (int64_t)l[(size_t)i * stride] * ((int64_t)1 << (b - pos[j]));
+  }
+  return fe_from64(t);
+}
+
+// Canonical limbs (fe_canon's output) -> the 20 canonical 13-bit limbs of
+// the same value, written to out[i * stride]. A 13-bit window spans at
+// most two of the ten limbs (each is 25 or 26 bits wide).
+FE_HD void fe_to_limbs13_canon(const fe& f, int32_t* out, int stride) {
+  const int pos[10] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230};
+#pragma unroll
+  for (int i = 0; i < 20; ++i) {
+    int b = 13 * i, j = 9;
+#pragma unroll
+    for (int k = 9; k > 0; --k)
+      if (b < pos[k]) j = k - 1;
+    uint32_t v = (uint32_t)f.v[j] >> (b - pos[j]);
+    if (j < 9) v |= (uint32_t)f.v[j + 1] << (pos[j + 1] - b);
+    out[(size_t)i * stride] = (int32_t)(v & 8191u);
+  }
 }
 
 FE_HD ge ge_identity() {

@@ -1,11 +1,12 @@
-// Batched SHA-256 for the Merkle ledger: kernels K1 and K2.
+// Batched SHA-256 for the Merkle ledger: kernels K1, K2 and K7.
 //
 // Replaces (JAX package, jitted jax.numpy programs):
 //   K1 sha256_words     <- plenum_tpu/ops/sha256.py:87  sha256_words
 //   K2 merkle_level     <- plenum_tpu/ops/sha256.py:142 merkle_wave (one
-//                          launch per level), :123 hash_interior and :129
-//                          merkle_reduce_pow2 (each level one launch with
-//                          the pairs in adjacent rows and offset 0)
+//                          launch per level) and :123 hash_interior (one
+//                          launch with the pairs interleaved, offset 0)
+//   K7 merkle_reduce    <- plenum_tpu/ops/sha256.py:129 merkle_reduce_pow2
+//                          (every level of a 512-leaf subtree in one block)
 //
 // Bound on an H100: 32-bit integer issue. After the compiler's fusing
 // (LOP3 for each whole boolean function, one funnel shift per rotate,
@@ -26,6 +27,18 @@
 // 8 bits) and reads the level's boundary node and 0/1 offset flag from
 // device memory, so the host launches every level of a wave back to back
 // with no sync in between.
+//
+// K7 reduces a complete power-of-two subtree to its root. Its levels
+// depend on each other, so across the grid they would need one launch
+// each (K2's way); inside a block they need only a barrier. One block of
+// 256 threads takes 512 leaves: level 0 reads the leaves from device
+// memory, every later level ping-pongs between two 256-digest buffers in
+// shared memory (16 KB) with __syncthreads() between levels, and thread 0
+// writes the block's root. A second launch of the same kernel reduces the
+// block roots when N > 512, so N <= 262,144 takes at most two launches
+// (against log2 N for K2). All 256 threads hash at level 0, which holds
+// half of a block's 511 parents; the active count halves at every later
+// level, so those levels run on ever fewer warps.
 //
 // Plain C interface (bound with ctypes): each launcher returns
 // cudaGetLastError() right after its launch.
@@ -160,6 +173,32 @@ __global__ void k_merkle_level(const uint32_t* __restrict__ cur,
   merkle_parent_one(cur, bound, off[0] & 1, j, out + (size_t)j * 8);
 }
 
+// K7: block b reduces leaves [512 b, 512 b + w), w = min(n, 512), to
+// out[b]. n is a power of two, so w is too.
+static constexpr int kReduceThreads = 256;
+static constexpr int kReduceLeaves = 2 * kReduceThreads;
+
+__global__ void __launch_bounds__(kReduceThreads)
+k_merkle_reduce(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                int n) {
+  __shared__ uint32_t buf[2][kReduceThreads][8];
+  int t = threadIdx.x;
+  int width = min(n - (int)blockIdx.x * kReduceLeaves, kReduceLeaves);
+  const uint32_t* leaves = in + (size_t)blockIdx.x * kReduceLeaves * 8;
+  if (t < width / 2)
+    sha256_interior_one(leaves + 16 * t, leaves + 16 * t + 8, buf[0][t]);
+  __syncthreads();
+  int src = 0;
+  for (int w = width / 2; w > 1; w >>= 1) {
+    if (t < w / 2)
+      sha256_interior_one(buf[src][2 * t], buf[src][2 * t + 1],
+                          buf[src ^ 1][t]);
+    __syncthreads();
+    src ^= 1;
+  }
+  if (t < 8) out[(size_t)blockIdx.x * 8 + t] = buf[src][0][t];
+}
+
 static int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 extern "C" int sha256_words_launch(const void* msgs, void* out, int n,
@@ -175,6 +214,14 @@ extern "C" int merkle_level_launch(const void* cur, const void* bound,
   k_merkle_level<<<blocks_for(n_parents), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)cur, (const uint32_t*)bound, (const int32_t*)off,
       (uint32_t*)out, n_parents);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int merkle_reduce_launch(const void* in, void* out, int n,
+                                    void* stream) {
+  int blocks = (n + kReduceLeaves - 1) / kReduceLeaves;
+  k_merkle_reduce<<<blocks, kReduceThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
 

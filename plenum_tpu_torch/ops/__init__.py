@@ -38,6 +38,10 @@ LAUNCHES: dict[str, int] = {
     "sha256_interior": 0,     # K2, csrc/sha256.cu
     "ed25519_decompress": 0,  # K3, csrc/ed25519.cu
     "ed25519_verify": 0,      # K4, csrc/ed25519.cu
+    "ed25519_quarter_tables": 0,  # K5, csrc/ed25519.cu
+    "ed25519_verify_staged": 0,   # K6, csrc/ed25519.cu
+    "merkle_reduce": 0,       # K7, csrc/sha256.cu
+    "field_chain": 0,         # K8, csrc/ed25519.cu
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -7,7 +7,8 @@ rejected when y >= p, when off the curve, or when x = 0 with the sign bit
 set. `S < L` and h = SHA512(R || A || M) mod L stay on the host
 (crypto/ed25519.py, `_dispatch_bytes`).
 
-Two kernels (csrc/ed25519.cu) carry the device half:
+Four kernels (csrc/ed25519.cu) carry the device half, two for each of
+the reference's two dispatches:
 
   K3 `decompress_kernel`  one thread per distinct key: RFC 8032 §5.1.3
       decompression and validity, the quarter points [2^(64k)](-A) for
@@ -16,6 +17,15 @@ Two kernels (csrc/ed25519.cu) carry the device half:
       bytes, gathers its key's tables by idx and the fixed-base comb
       table by S byte, runs 16 windows x (4 doublings + 4 additions) and
       32 comb additions, inverts Z once and compares with R.
+  K5 `quarter_tables`     the limb-staged dispatch's keys: one thread per
+      host-staged row of quarter points (the reference's 13-bit limbs,
+      `ext_quarters`), converted and built into K3's table layout.
+  K6 `verify_staged`      the limb-staged dispatch's signatures: K4's
+      ladder on the reference's staged digit arrays (batch axis last),
+      R compared as 13-bit limbs exactly as given.
+
+`verify_kernel_bytes` is K3 then K4 (B1); `verify_kernel` and
+`verify_kernel_indexed` are K5 then K6 (B3).
 
 Field elements (device and plain versions alike) are 10 signed limbs in
 radix 2^25.5 (ref10's layout: limb i sits at bit POS[i], 26 or 25 bits
@@ -241,67 +251,108 @@ def bytes_to_fe(u8: torch.Tensor) -> torch.Tensor:
     return torch.stack(limbs, dim=-1)
 
 
+def _limb13_plan() -> list[tuple[int, int]]:
+    """For each 13-bit limb i (at bit 13 i): the limb j of the port's
+    layout it lands in (FE_POS[j] <= 13 i) and its shift inside it."""
+    plan = []
+    for i in range(NLIMB):
+        b = RADIX * i
+        j = max(k for k in range(FE_LIMBS) if FE_POS[k] <= b)
+        plan.append((j, b - FE_POS[j]))
+    return plan
+
+
+_LIMB13 = _limb13_plan()
+
+
+def limbs13_to_fe(l: torch.Tensor) -> torch.Tensor:
+    """The reference's 20 signed 13-bit limbs [..., 20] (carried, in
+    [-2, 2^13 + 3], or canonical) -> int64[..., 10] carried limbs of the
+    same value mod p (fe_from_limbs13 in csrc/fe25519.cuh): the terms
+    l_i 2^(13 i) are summed into the limb they fall in, signs kept, then
+    three carry passes; the bits at 2^255 and up wrap as 19."""
+    l = l.to(torch.int64)
+    t = [torch.zeros_like(l[..., 0]) for _ in range(FE_LIMBS)]
+    for i, (j, shift) in enumerate(_LIMB13):
+        t[j] = t[j] + l[..., i] * (1 << shift)
+    return fe_carry(fe_carry(fe_carry(torch.stack(t, dim=-1))))
+
+
+def fe_to_limbs13(f: torch.Tensor) -> torch.Tensor:
+    """Canonical limbs [..., 10] (fe_canon's output) -> the 20 canonical
+    13-bit limbs of the same value (fe_to_limbs13_canon)."""
+    out = []
+    for i, (j, shift) in enumerate(_LIMB13):
+        v = f[..., j] >> shift
+        if j < FE_LIMBS - 1:
+            v = v | (f[..., j + 1] << (FE_POS[j + 1] - RADIX * i))
+        out.append(v & MASK)
+    return torch.stack(out, dim=-1)
+
+
 # --- point ops: extended twisted Edwards (X:Y:Z:T), a = -1 ----------------
 # A point is a tuple of 4 carried field tensors. Identity is (0, 1, 1, 0).
+# Independent field operations of one formula run as one call on stacked
+# operands: each row gets exactly the limb operations the kernel gives it
+# (a carry pass and a product are row-wise), in fewer PyTorch calls.
+
+def _stack(*fs) -> torch.Tensor:
+    return torch.stack(torch.broadcast_tensors(*fs))
+
+
+def _muls(fs, gs) -> tuple:
+    """fe_mul of each pair (f_i, g_i), as one call."""
+    return fe_mul(_stack(*fs), _stack(*gs)).unbind(0)
+
+
+def _finish(e, f_, g, h):
+    """The common tail of the formulas: (e f, g h, f g, e h)."""
+    return _muls((e, g, f_, e), (f_, h, g, h))
+
+
+def _add_tail(a, b, c, d):
+    """e = b - a, f = d - c, g = d + c, h = b + a, one carry pass each,
+    then the tail."""
+    return _finish(*fe_carry(_stack(b - a, d - c, d + c, b + a)).unbind(0))
+
 
 def pt_add(p1, p2):
     """Unified addition (add-2008-hwcd-3)."""
     x1, y1, z1, t1 = p1
     x2, y2, z2, t2 = p2
-    a = fe_mul(fe_sub(y1, x1), fe_sub(y2, x2))
-    b = fe_mul(fe_add(y1, x1), fe_add(y2, x2))
-    c = fe_mul(fe_mul(t1, t2), _const("d2", t1.device))
-    zz = fe_mul(z1, z2)
-    d = fe_add(zz, zz)
-    e = fe_sub(b, a)
-    f_ = fe_sub(d, c)
-    g = fe_add(d, c)
-    h = fe_add(b, a)
-    return (fe_mul(e, f_), fe_mul(g, h), fe_mul(f_, g), fe_mul(e, h))
+    u1 = fe_carry(_stack(y1 - x1, y1 + x1)).unbind(0)
+    u2 = fe_carry(_stack(y2 - x2, y2 + x2)).unbind(0)
+    a, b, tt, zz = _muls((u1[0], u1[1], t1, z1), (u2[0], u2[1], t2, z2))
+    c = fe_mul(tt, _const("d2", t1.device))
+    return _add_tail(a, b, c, fe_add(zz, zz))
 
 
 def pt_add_t2d(p1, q):
     """Addition where q carries 2d*T in place of T."""
     x1, y1, z1, t1 = p1
     x2, y2, z2, t2d2 = q
-    a = fe_mul(fe_sub(y1, x1), fe_sub(y2, x2))
-    b = fe_mul(fe_add(y1, x1), fe_add(y2, x2))
-    c = fe_mul(t1, t2d2)
-    zz = fe_mul(z1, z2)
-    d = fe_add(zz, zz)
-    e = fe_sub(b, a)
-    f_ = fe_sub(d, c)
-    g = fe_add(d, c)
-    h = fe_add(b, a)
-    return (fe_mul(e, f_), fe_mul(g, h), fe_mul(f_, g), fe_mul(e, h))
+    u1 = fe_carry(_stack(y1 - x1, y1 + x1)).unbind(0)
+    u2 = fe_carry(_stack(y2 - x2, y2 + x2)).unbind(0)
+    a, b, c, zz = _muls((u1[0], u1[1], t1, z1), (u2[0], u2[1], t2d2, z2))
+    return _add_tail(a, b, c, fe_add(zz, zz))
 
 
 def pt_madd(p1, ypx, ymx, t2d):
     """Mixed addition with an affine niels point (y+x, y-x, 2d*x*y)."""
     x1, y1, z1, t1 = p1
-    a = fe_mul(fe_sub(y1, x1), ymx)
-    b = fe_mul(fe_add(y1, x1), ypx)
-    c = fe_mul(t1, t2d)
-    d = fe_add(z1, z1)
-    e = fe_sub(b, a)
-    f_ = fe_sub(d, c)
-    g = fe_add(d, c)
-    h = fe_add(b, a)
-    return (fe_mul(e, f_), fe_mul(g, h), fe_mul(f_, g), fe_mul(e, h))
+    u1 = fe_carry(_stack(y1 - x1, y1 + x1)).unbind(0)
+    a, b, c = _muls((u1[0], u1[1], t1), (ymx, ypx, t2d))
+    return _add_tail(a, b, c, fe_add(z1, z1))
 
 
 def pt_double(p1):
     """dbl-2008-hwcd for a = -1: 4 squarings + 4 multiplies."""
     x1, y1, z1, _ = p1
-    a = fe_sq(x1)
-    b = fe_sq(y1)
-    zz = fe_sq(z1)
-    c = fe_add(zz, zz)
-    h = fe_add(a, b)
-    e = fe_sub(h, fe_sq(fe_add(x1, y1)))
-    g = fe_sub(a, b)
-    f_ = fe_add(c, g)
-    return (fe_mul(e, f_), fe_mul(g, h), fe_mul(f_, g), fe_mul(e, h))
+    sq_in = _stack(x1, y1, z1, fe_add(x1, y1))
+    a, b, zz, s = fe_sq(sq_in).unbind(0)
+    c, h, g = fe_carry(_stack(zz + zz, a + b, a - b)).unbind(0)
+    e = fe_sub(h, s)
+    return _finish(e, fe_add(c, g), g, h)
 
 
 def _identity(shape, device):
@@ -378,30 +429,35 @@ def h_digits(h_u8: torch.Tensor) -> torch.Tensor:
         -1, N_QUARTERS, N_WIN)
 
 
-def verify_tables_torch(s_u8, h_u8, r_u8, idx, tables, valid):
-    """Plain version of K4 -> bool[N]: compress([S]B + [h](-A)) == R,
-    with A's tables gathered by idx; False where the key is invalid."""
-    dev = s_u8.device
-    n = s_u8.shape[0]
+def _ladder(h_dig, s_dig, tab):
+    """The ladder K4 and K6 share: [S]B + [h](-A) from h's windows
+    h_dig [N, 4, 16] (quarter q, window t, LSB first), S's comb digits
+    s_dig [N, 32] and each signature's tables tab [N, 4, 16, 4, 10];
+    -> canonical affine (x, y), int64[N, 10] each."""
+    dev = tab.device
+    n = tab.shape[0]
     rows = torch.arange(n, device=dev)
-    tab = tables.to(torch.int64)[idx.long()]             # [N, 4, 16, 4, 10]
-    digits = h_digits(h_u8)
     acc = _identity((n,), dev)
     for t in range(N_WIN - 1, -1, -1):                   # MSB-first windows
         for _ in range(WBITS):
             acc = pt_double(acc)
         for q in range(N_QUARTERS):
-            sel = tab[rows, q, digits[:, q, t]]          # [N, 4, 10]
+            sel = tab[rows, q, h_dig[:, q, t]]           # [N, 4, 10]
             acc = pt_add_t2d(acc, sel.unbind(1))
     comb = comb_table_fe(dev)                            # [32, 256, 3, 10]
-    s_idx = s_u8.long()
     for w in range(N_COMB):
-        ypx, ymx, t2d = comb[w, s_idx[:, w]].unbind(1)
+        ypx, ymx, t2d = comb[w, s_dig[:, w]].unbind(1)
         acc = pt_madd(acc, ypx, ymx, t2d)
     px, py, pz, _ = acc
     zinv = fe_inv(pz)
-    x_aff = fe_canon(fe_mul(px, zinv))
-    y_aff = fe_canon(fe_mul(py, zinv))
+    return fe_canon(fe_mul(px, zinv)), fe_canon(fe_mul(py, zinv))
+
+
+def verify_tables_torch(s_u8, h_u8, r_u8, idx, tables, valid):
+    """Plain version of K4 -> bool[N]: compress([S]B + [h](-A)) == R,
+    with A's tables gathered by idx; False where the key is invalid."""
+    tab = tables.to(torch.int64)[idx.long()]             # [N, 4, 16, 4, 10]
+    x_aff, y_aff = _ladder(h_digits(h_u8), s_u8.long(), tab)
     ok_y = (y_aff == bytes_to_fe(r_u8)).all(-1)
     ok_sign = (x_aff[:, 0] & 1) == (r_u8[:, 31].to(torch.int64) >> 7)
     return ok_y & ok_sign & valid[idx.long()]
@@ -413,23 +469,63 @@ def verify_kernel_bytes_torch(s_u8, h_u8, keys_u8, idx, r_u8):
     return verify_tables_torch(s_u8, h_u8, r_u8, idx, tables, valid)
 
 
+# --- plain versions of K5 and K6: the limb-staged dispatch ----------------
+
+def quarter_tables_torch(aq: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: the reference's staged quarter points
+    int32[U, 4, 4, 20] (13-bit limbs, projective) -> window tables
+    int32[U, 4, 16, 4, 10] in K3's layout."""
+    return build_tables_torch(limbs13_to_fe(aq))
+
+
+def verify_staged_torch(s_digits, h_digits, ry, r_sign, idx, tables):
+    """Plain version of K6 -> bool[N].
+
+    s_digits int32[32, N] and h_digits int32[16, 4, N] are the
+    reference's staged digits (batch axis last; taken mod 256 and 16),
+    ry int32[N, 20] and r_sign int32[N] R's y limbs and sign as staged,
+    idx int32[N] each signature's row of tables (K5's output). True where
+    canonical y', written as 13-bit limbs, equals ry limb for limb and
+    x's parity equals r_sign; False where idx is outside [0, U)."""
+    n = idx.shape[0]
+    u_ = tables.shape[0]
+    idx_l = idx.long()
+    in_range = (idx_l >= 0) & (idx_l < u_)
+    if n == 0 or u_ == 0:
+        return torch.zeros((n,), dtype=torch.bool, device=idx.device)
+    tab = tables.to(torch.int64)[torch.where(in_range, idx_l, 0)]
+    h_dig = h_digits.long().permute(2, 1, 0) & 15        # [N, 4, 16]
+    s_dig = s_digits.long().T & 255                      # [N, 32]
+    x_aff, y_aff = _ladder(h_dig, s_dig, tab)
+    ok_y = (fe_to_limbs13(y_aff) == ry.long()).all(-1)
+    ok_sign = (x_aff[:, 0] & 1) == r_sign.long()
+    return ok_y & ok_sign & in_range
+
+
 # --- kernel wrappers (csrc/ed25519.cu) -------------------------------------
 
 _CONFIGURED = False
 
 
-def _lib() -> ctypes.CDLL:
+def lib() -> ctypes.CDLL:
+    """csrc/ed25519.cu's library, its launchers' signatures set."""
     global _CONFIGURED
-    lib = ops.lib("ed25519")
+    cdll = ops.lib("ed25519")
     if not _CONFIGURED:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ed25519_decompress_launch.argtypes = [vp, vp, vp, vp, ci, vp]
-        lib.ed25519_verify_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+        cdll.ed25519_decompress_launch.argtypes = [vp, vp, vp, vp, ci, vp]
+        cdll.ed25519_verify_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                               vp, ci, ci, vp]
-        lib.ed25519_decompress_launch.restype = ci
-        lib.ed25519_verify_launch.restype = ci
+        cdll.ed25519_quarter_tables_launch.argtypes = [vp, vp, ci, vp]
+        cdll.ed25519_verify_staged_launch.argtypes = [vp, vp, vp, vp, vp, vp,
+                                                     vp, vp, ci, ci, vp]
+        cdll.field_chain_launch.argtypes = [vp, vp, ci, ci, vp]
+        for fn in (cdll.ed25519_decompress_launch, cdll.ed25519_verify_launch,
+                   cdll.ed25519_quarter_tables_launch,
+                   cdll.ed25519_verify_staged_launch, cdll.field_chain_launch):
+            fn.restype = ci
         _CONFIGURED = True
-    return lib
+    return cdll
 
 
 def _check_rows(t: torch.Tensor, name: str) -> None:
@@ -453,7 +549,7 @@ def decompress_kernel(keys_u8: torch.Tensor):
                          device=dev)
     valid = torch.empty((u_,), dtype=torch.bool, device=dev)
     if u_:
-        ops.checked(_lib().ed25519_decompress_launch(
+        ops.checked(lib().ed25519_decompress_launch(
             ops.ptr(keys_u8), ops.ptr(quarters), ops.ptr(tables),
             ops.ptr(valid), u_, ops.stream_handle(dev)), "ed25519_decompress")
         ops.count("ed25519_decompress")
@@ -477,7 +573,7 @@ def verify_tables(s_u8, h_u8, r_u8, idx, tables, valid) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
         comb = comb_table_device(dev)
-        ops.checked(_lib().ed25519_verify_launch(
+        ops.checked(lib().ed25519_verify_launch(
             ops.ptr(s_u8), ops.ptr(h_u8), ops.ptr(r_u8), ops.ptr(idx),
             ops.ptr(tables), ops.ptr(valid), ops.ptr(comb), ops.ptr(out),
             n, tables.shape[0], ops.stream_handle(dev)), "ed25519_verify")
@@ -491,6 +587,88 @@ def verify_kernel_bytes(s_u8, h_u8, keys_u8, idx, r_u8) -> torch.Tensor:
     over the keys, one K4 launch over the signatures."""
     _, tables, valid = decompress_kernel(keys_u8)
     return verify_tables(s_u8, h_u8, r_u8, idx, tables, valid)
+
+
+def _check_i32(t: torch.Tensor, name: str, shape: tuple) -> None:
+    """int32 with the given shape; None in `shape` takes any size."""
+    if t.dtype != torch.int32 or t.dim() != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name}: want int32{list(shape)}, got "
+                         f"{t.dtype}{list(t.shape)}")
+
+
+def quarter_tables(aq: torch.Tensor) -> torch.Tensor:
+    """K5: staged quarter points int32[U, 4, 4, 20] (the reference's
+    13-bit limbs, as `ext_quarters` gives them) -> window tables
+    int32[U, 4, 16, 4, 10], the layout K3 writes."""
+    _check_i32(aq, "quarter_tables", (None, N_QUARTERS, 4, NLIMB))
+    if not aq.is_cuda:
+        return quarter_tables_torch(aq)
+    ops.require_cuda("ed25519_quarter_tables", aq)
+    u_ = aq.shape[0]
+    tables = torch.empty((u_, N_QUARTERS, 16, 4, FE_LIMBS), dtype=torch.int32,
+                         device=aq.device)
+    if u_:
+        ops.checked(lib().ed25519_quarter_tables_launch(
+            ops.ptr(aq), ops.ptr(tables), u_, ops.stream_handle(aq.device)),
+            "ed25519_quarter_tables")
+        ops.count("ed25519_quarter_tables")
+    return tables
+
+
+def verify_staged(s_digits, h_digits, ry, r_sign, idx, tables) -> torch.Tensor:
+    """K6: verdicts bool[N] from the reference's staged arrays
+    (see verify_staged_torch) and K5's tables, gathered by idx."""
+    n = idx.shape[0] if idx.dim() == 1 else -1
+    _check_i32(idx, "verify_staged idx", (n,))
+    _check_i32(s_digits, "verify_staged s_digits", (N_COMB, n))
+    _check_i32(h_digits, "verify_staged h_digits", (N_WIN, N_QUARTERS, n))
+    _check_i32(ry, "verify_staged ry", (n, NLIMB))
+    _check_i32(r_sign, "verify_staged r_sign", (n,))
+    _check_i32(tables, "verify_staged tables",
+               (None, N_QUARTERS, 16, 4, FE_LIMBS))
+    if not idx.is_cuda:
+        return verify_staged_torch(s_digits, h_digits, ry, r_sign, idx, tables)
+    ops.require_cuda("ed25519_verify_staged", s_digits, h_digits, ry, r_sign,
+                     idx, tables)
+    dev = idx.device
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n:
+        comb = comb_table_device(dev)
+        ops.checked(lib().ed25519_verify_staged_launch(
+            ops.ptr(s_digits), ops.ptr(h_digits), ops.ptr(ry), ops.ptr(r_sign),
+            ops.ptr(idx), ops.ptr(tables), ops.ptr(comb), ops.ptr(out), n,
+            tables.shape[0], ops.stream_handle(dev)), "ed25519_verify_staged")
+        ops.count("ed25519_verify_staged")
+    return out
+
+
+def verify_kernel_indexed(s_digits, h_digits, aq_unique, idx, ry,
+                          r_sign) -> torch.Tensor:
+    """The limb-staged dispatch with keys deduped (the reference's
+    verify_kernel_indexed): one row of quarter points per distinct key,
+    aq_unique int32[U, 4, 4, 20], and idx int32[N] mapping each signature
+    to its row -> bool[N]. On CUDA tensors: one K5 launch over the rows,
+    one K6 launch over the signatures."""
+    return verify_staged(s_digits, h_digits, ry, r_sign, idx,
+                         quarter_tables(aq_unique))
+
+
+def verify_kernel(s_digits, h_digits, aq, ry, r_sign) -> torch.Tensor:
+    """The limb-staged dispatch with one row per signature (the
+    reference's verify_kernel): verify_kernel_indexed with idx = 0..N-1."""
+    idx = torch.arange(aq.shape[0], dtype=torch.int32, device=aq.device)
+    return verify_kernel_indexed(s_digits, h_digits, aq, idx, ry, r_sign)
+
+
+def stage_on(device, *arrays) -> tuple:
+    """Staged host arrays (numpy or tensors) as contiguous tensors on one
+    device; None means the card, and raises when there is none."""
+    dev = ops.resolve_device(device)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a)
+                                 if isinstance(a, np.ndarray) else a)
+                 .to(dev).contiguous() for a in arrays)
 
 
 # --- fixed-base comb table -------------------------------------------------

@@ -9,8 +9,8 @@ no uint32 arithmetic on the CPU): messages int32[N, 16*B] of big-endian
 words of B padded 64-byte blocks, digests int32[N, 8].
 
 Each public function dispatches on where its tensors lie: CUDA tensors go
-to the kernel in csrc/sha256.cu (K1 `sha256_words`, K2 the interior
-hash), CPU tensors to the plain PyTorch version beside it (`*_torch`),
+to the kernels in csrc/sha256.cu (K1 `sha256_words`, K2 the interior
+hash per level, K7 the subtree reduce), CPU tensors to the plain PyTorch version beside it (`*_torch`),
 which computes in int64 lanes masked to 32 bits. There is no fallback:
 a kernel that cannot launch raises.
 """
@@ -138,10 +138,19 @@ def merkle_wave_torch(new0: torch.Tensor, bounds: torch.Tensor,
     return tuple(outs)
 
 
+def merkle_reduce_pow2_torch(leaf_digests: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: one hash_interior_torch per level."""
+    h = leaf_digests
+    while h.shape[0] > 1:
+        h = hash_interior_torch(h[0::2], h[1::2])
+    return h[0]
+
+
 # --- kernel wrappers (csrc/sha256.cu) --------------------------------------
 
 _CONFIGURED = False
 _ZERO_OFF: dict = {}
+_REDUCE_LEAVES = 512      # leaves one K7 block reduces (csrc/sha256.cu)
 
 
 def _lib() -> ctypes.CDLL:
@@ -151,7 +160,9 @@ def _lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.sha256_words_launch.argtypes = [vp, vp, ci, ci, vp]
         lib.merkle_level_launch.argtypes = [vp, vp, vp, vp, ci, vp]
-        for fn in (lib.sha256_words_launch, lib.merkle_level_launch):
+        lib.merkle_reduce_launch.argtypes = [vp, vp, ci, vp]
+        for fn in (lib.sha256_words_launch, lib.merkle_level_launch,
+                   lib.merkle_reduce_launch):
             fn.restype = ci
         _CONFIGURED = True
     return lib
@@ -249,17 +260,28 @@ def merkle_wave(new0: torch.Tensor, bounds: torch.Tensor,
 
 def merkle_reduce_pow2(leaf_digests: torch.Tensor) -> torch.Tensor:
     """Root of a complete power-of-two subtree: int32[N, 8] -> int32[8].
-    One hash per level (on CUDA tensors, one K2 launch each, pairing the
-    level's adjacent rows)."""
+    On CUDA tensors K7 reduces every 512-leaf block in one launch, and
+    launches again on the block roots while more than one is left: at
+    most two launches for N <= 262,144. The plain version hashes one
+    level per call."""
     h = leaf_digests
     _check_words(h, "merkle_reduce_pow2")
+    n = h.shape[0]
+    if n == 0 or n & (n - 1) or h.shape[1] != 8:
+        raise ValueError(f"merkle_reduce_pow2: want int32[N, 8] with N a "
+                         f"power of two, got {list(h.shape)}")
     if not h.is_cuda:
-        while h.shape[0] > 1:
-            h = hash_interior_torch(h[0::2], h[1::2])
-        return h[0]
-    ops.require_cuda("sha256_interior", h)
+        return merkle_reduce_pow2_torch(h)
+    ops.require_cuda("merkle_reduce", h)
     while h.shape[0] > 1:
-        h = _merkle_level(h, h, _zero_off(h.device), h.shape[0] // 2)
+        n = h.shape[0]
+        out = torch.empty(((n + _REDUCE_LEAVES - 1) // _REDUCE_LEAVES, 8),
+                          dtype=torch.int32, device=h.device)
+        ops.checked(_lib().merkle_reduce_launch(
+            ops.ptr(h), ops.ptr(out), n, ops.stream_handle(h.device)),
+            "merkle_reduce")
+        ops.count("merkle_reduce")
+        h = out
     return h[0]
 
 

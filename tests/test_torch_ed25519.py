@@ -14,8 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from plenum_tpu.crypto.ed25519 import CpuEd25519Verifier, Ed25519Signer as RefSigner
+from plenum_tpu.crypto.ed25519 import (CpuEd25519Verifier,
+                                       Ed25519Signer as RefSigner,
+                                       JaxEd25519Verifier)
 from plenum_tpu.ops import ed25519 as ref
+from plenum_tpu_torch import ops
+from plenum_tpu_torch.convert import verifier_cache_from_reference
 from plenum_tpu_torch.crypto.ed25519 import (Ed25519Signer,
                                              TorchEd25519Verifier,
                                              make_verifier)
@@ -289,6 +293,225 @@ def test_decompress_matches_jax_decompress_kernel():
             assert _ext_to_affine_ints(x, y, z) == _ext_to_affine_ints(wx, wy, wz)
 
 
+# --- the limb-staged dispatch (K5 + K6) ------------------------------------
+
+def _limb_verifier(**kw):
+    v = TorchEd25519Verifier(device="cpu", **kw)
+    v._compressed_dispatch = False
+    return v
+
+
+def _dispatch_cases():
+    """The cases of the reference's test_bytes_and_limb_dispatch_agree."""
+    import random
+    rng = random.Random(11)
+    signers = [RefSigner(bytes([i + 60]) * 32) for i in range(3)]
+    items = []
+    for i in range(19):
+        s = signers[i % 3]
+        msg = rng.randbytes(20)
+        sig = s.sign(msg)
+        if i % 4 == 0:
+            b = bytearray(sig); b[1] ^= 0x55; sig = bytes(b)
+        if i % 7 == 0:
+            sig = sig[:32] + (ref.L + i).to_bytes(32, "little")  # S >= L
+        items.append((msg, sig, s.verkey))
+    items.append((b"m", b"\x01" * 64, bytes(32)))      # y=0 verkey
+    items.append((b"m", b"\x01" * 64, (P + 2).to_bytes(32, "little")))
+    return items
+
+
+def test_bytes_and_limb_dispatch_agree():
+    items = _dispatch_cases()
+    got_b = TorchEd25519Verifier(device="cpu").verify_batch(items)
+    got_l = _limb_verifier().verify_batch(items)
+    cpu = CpuEd25519Verifier().verify_batch(items)
+    assert list(got_b) == list(got_l) == list(cpu)
+    assert any(cpu) and not all(cpu)
+
+
+def test_limb_path_caches_staged_keys():
+    """The counterpart of the reference's test_verkey_cache_hits, plus the
+    cache's FIFO bound, eviction and rewarm."""
+    s = Ed25519Signer(b"\x07" * 32)
+    items = [(m, s.sign(m), s.verkey) for m in (b"m%d" % i for i in range(8))]
+    v = TorchEd25519Verifier(device="cpu")
+    assert v.verify_batch(items).all()
+    assert len(v._pt_cache) == 0        # the byte path stages no key rows
+    lv = _limb_verifier(cache_size=2)
+    assert lv.verify_batch(items).all()
+    assert list(lv._pt_cache) == [s.verkey]
+    a = ref.decompress(s.verkey)
+    assert lv._decompress_cached(s.verkey) == a
+    assert np.array_equal(lv._pt_cache[s.verkey],
+                          ref.ext_quarters(((P - a[0]) % P, a[1])))
+    others = [RefSigner(bytes([i + 1]) * 32).verkey for i in range(2)]
+    assert lv._decompress_cached(others[0]) is not None
+    off_curve = (2).to_bytes(32, "little")
+    assert lv._decompress_cached(off_curve) is None        # invalid: None
+    assert list(lv._pt_cache) == [others[0], off_curve]    # oldest went
+    lv.evict_key(others[0])
+    assert list(lv._pt_cache) == [off_curve]
+    lv.rewarm()
+    assert not lv._pt_cache
+
+
+def _affine(pt4):
+    x, y, z = (port.fe_to_int(c) for c in pt4[:3])
+    zi = pow(z % P, P - 2, P)
+    return (x * zi % P, y * zi % P)
+
+
+def test_quarter_tables_hold_decompress_tables_points():
+    """K5's plain tables, built from ext_quarters rows, hold the same
+    points as K3's plain tables built from the key bytes. Their projective
+    Z differ (host doublings vs the kernel's chain), so entries are
+    compared affine, mod p; entry 0 is the identity, and the 2d*T slot
+    holds 2d x y."""
+    keys = _GOOD_KEYS
+    k_u8 = torch.from_numpy(np.frombuffer(b"".join(keys), np.uint8)
+                            .reshape(-1, 32).copy())
+    _, tab3, valid = port.decompress_torch(k_u8)
+    assert valid.all()
+    rows = []
+    for kb in keys:
+        x, y = ref.decompress(kb)
+        rows.append(ref.ext_quarters(((P - x) % P, y)))
+    tab5 = port.quarter_tables(torch.from_numpy(np.stack(rows)))
+    assert tab5.shape == tab3.shape and tab5.dtype == torch.int32
+    for i in range(len(keys)):
+        for q in range(4):
+            for d in range(16):
+                e3, e5 = tab3[i, q, d], tab5[i, q, d]
+                assert _affine(e3) == _affine(e5), (i, q, d)
+                x, y = _affine(e5)
+                t2d = port.fe_to_int(e5[3]) * pow(port.fe_to_int(e5[2]), P - 2, P)
+                assert t2d % P == ref.D2 * x * y % P
+            assert _affine(tab5[i, q, 0]) == (0, 1)
+
+
+def _carried(limbs: np.ndarray, k: int) -> np.ndarray:
+    """Another carried representation of the same value mod p: the 13-bit
+    limbs of v + k p (k >= 1), then a borrow (limb i - 1 += 2^13, limb i
+    -= 1) wherever both limbs stay in [-2, 2^13 + 3]."""
+    v = ref.limbs_to_int(limbs) + k * P
+    out = np.array([(v >> (13 * i)) & 8191 for i in range(19)]
+                   + [v >> (13 * 19)], dtype=np.int64)
+    for i in range(1, 20):
+        if out[i - 1] <= 3 and out[i] >= -1:
+            out[i - 1] += 8192
+            out[i] -= 1
+    assert ref.limbs_to_int(out) == v and out.min() >= -2 and out.max() <= 8195
+    return out.astype(np.int32)
+
+
+def _staged(items):
+    idxs, staged = _limb_verifier().stage_limbs(items)
+    return idxs, [torch.from_numpy(np.ascontiguousarray(a)) for a in staged]
+
+
+def test_limbs13_to_fe_keeps_signs():
+    rng = np.random.default_rng(23)
+    rows = rng.integers(-2, 8196, size=(64, 20)).astype(np.int32)
+    rows[0] = -2
+    rows[1] = 8195
+    rows[2] = 0
+    got = port.limbs13_to_fe(torch.from_numpy(rows))
+    assert int(got.abs().max()) < 2**26 + 2**7
+    assert [port.fe_to_int(r) % P for r in got] == \
+        [ref.limbs_to_int(r) % P for r in rows]
+    canon = port.fe_canon(got)
+    assert port.fe_to_limbs13(canon).tolist() == \
+        [ref.int_to_limbs(ref.limbs_to_int(r) % P).tolist() for r in rows]
+
+
+def test_carried_quarter_rows_give_the_same_verdicts():
+    items = _dispatch_cases()
+    idxs, (sd, hd, aq, idx, ry, rs) = _staged(items)
+    want = port.verify_kernel_indexed(sd, hd, aq, idx, ry, rs)
+    carried = torch.from_numpy(np.stack([
+        np.stack([np.stack([_carried(aq[u, q, c].numpy(), 1 + (u + q + c) % 31)
+                            for c in range(4)]) for q in range(4)])
+        for u in range(aq.shape[0])]))
+    assert not torch.equal(carried, aq)
+    assert torch.equal(port.verify_kernel_indexed(sd, hd, carried, idx, ry, rs),
+                       want)
+    # verify_kernel: one row per signature, the same verdicts
+    assert torch.equal(port.verify_kernel(sd, hd, carried[idx.long()], ry, rs),
+                       want)
+    got = np.zeros(len(items), dtype=bool)
+    got[idxs] = want.numpy()
+    assert got.tolist() == CpuEd25519Verifier().verify_batch(items).tolist()
+
+
+def test_r_limbs_are_compared_exactly():
+    """The reference compares canonical y' with ry limb for limb and never
+    reduces ry: an R whose y limbs are borrowed (the same integer) or
+    whose sign word is not 0/1 fails; an index out of range fails."""
+    items = [it for it in _dispatch_cases() if CpuEd25519Verifier().verify(*it)]
+    _, (sd, hd, aq, idx, ry, rs) = _staged(items)
+    base = port.verify_kernel_indexed(sd, hd, aq, idx, ry, rs)
+    assert base.all()
+    ry_b = ry.clone()
+    i = int(torch.nonzero(ry_b[0, 1:] >= 1)[0]) + 1    # borrow into limb i-1
+    ry_b[0, i - 1] += 8192
+    ry_b[0, i] -= 1
+    assert ref.limbs_to_int(ry_b[0].numpy()) == ref.limbs_to_int(ry[0].numpy())
+    rs_b = rs.clone()
+    rs_b[1] += 2
+    idx_b = idx.clone()
+    idx_b[2] = aq.shape[0]
+    idx_b[3] = -1
+    got = port.verify_kernel_indexed(sd, hd, aq, idx_b, ry_b, rs_b)
+    assert got.tolist() == [False] * 4 + [True] * (len(items) - 4)
+
+
+def test_verifier_cache_seeded_from_reference(monkeypatch):
+    """A reference verifier's staged key rows carried into the port's
+    verifier: the limb path then stages no key anew."""
+    items = _dispatch_cases()
+    ref_v = JaxEd25519Verifier()
+    for _, _, vk in items:
+        ref_v._neg_a_limbs(vk)
+    v = verifier_cache_from_reference(ref_v._pt_cache, _limb_verifier())
+    assert list(v._pt_cache) == list(ref_v._pt_cache)
+    monkeypatch.setattr(port, "ext_quarters", None)     # would raise if used
+    monkeypatch.setattr(port, "decompress", None)
+    assert v.verify_batch(items).tolist() == \
+        CpuEd25519Verifier().verify_batch(items).tolist()
+    small = verifier_cache_from_reference(ref_v._pt_cache,
+                                          _limb_verifier(cache_size=2))
+    assert list(small._pt_cache) == list(ref_v._pt_cache)[-2:]
+    with pytest.raises(ValueError):
+        verifier_cache_from_reference({b"k" * 32: np.zeros((4, 4, 10))}, v)
+
+
+def test_limb_kernels_on_cpu_launch_nothing():
+    before = dict(ops.LAUNCHES)
+    _, (sd, hd, aq, idx, ry, rs) = _staged(_dispatch_cases()[:3])
+    port.verify_kernel_indexed(sd, hd, aq, idx, ry, rs)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.slow
+def test_limb_kernels_match_jax_verify_kernel():
+    """verify_kernel and verify_kernel_indexed against the JAX package's,
+    on the same staged numpy arrays."""
+    import jax.numpy as jnp
+    items = _dispatch_cases()
+    _, staged = _limb_verifier().stage_limbs(items)
+    sd, hd, aq, idx, ry, rs = staged
+    got_i = port.verify_kernel_indexed(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in staged))
+    want_i = ref.verify_kernel_indexed(*(jnp.asarray(a) for a in staged))
+    assert got_i.tolist() == np.asarray(want_i).tolist()
+    rows = np.ascontiguousarray(aq[idx])
+    got = port.verify_kernel(*(torch.from_numpy(np.ascontiguousarray(a))
+                               for a in (sd, hd, rows, ry, rs)))
+    want = ref.verify_kernel(*(jnp.asarray(a) for a in (sd, hd, rows, ry, rs)))
+    assert got.tolist() == np.asarray(want).tolist() == got_i.tolist()
+
+
 # --- the kernels on the card ------------------------------------------------
 
 @pytest.fixture
@@ -313,3 +536,23 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
                                                 valid))
     assert make_verifier("cuda").verify_batch(items).tolist() == \
         CpuEd25519Verifier().verify_batch(items).tolist()
+
+
+@pytest.mark.gpu
+def test_limb_kernels_match_plain_versions_on_card(cuda_device):
+    items = _dispatch_cases()
+    _, staged = _staged(items)
+    on_card = [t.to(cuda_device) for t in staged]
+    sd, hd, aq, idx, ry, rs = on_card
+    assert torch.equal(port.quarter_tables(aq).cpu(),
+                       port.quarter_tables_torch(staged[2]))
+    tables = port.quarter_tables(aq)
+    assert torch.equal(port.verify_staged(sd, hd, ry, rs, idx, tables).cpu(),
+                       port.verify_staged_torch(*staged[:2], staged[4],
+                                                staged[5], staged[3],
+                                                tables.cpu()))
+    v = make_verifier("cuda")
+    v._compressed_dispatch = False
+    assert v.verify_batch(items).tolist() == \
+        CpuEd25519Verifier().verify_batch(items).tolist()
+

@@ -46,6 +46,9 @@ print("imported", len(sys.argv) - 1)
 def test_every_module_imports_with_jax_and_reference_blocked():
     mods = _port_modules()
     assert "plenum_tpu_torch.ops.ed25519" in mods and len(mods) >= 20
+    assert {"plenum_tpu_torch.ops.field_chain", "plenum_tpu_torch.parallel",
+            "plenum_tpu_torch.parallel.mesh", "plenum_tpu_torch.graft_entry",
+            "plenum_tpu_torch.parallel.crypto_plane"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _BLOCKER, *mods], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)

@@ -91,6 +91,32 @@ def test_merkle_reduce_pow2_matches_jax_and_host():
     assert port.digests_to_bytes(got[None]) == hs
 
 
+_REDUCE = _words(np.random.default_rng(1024), 1024, 8)
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(11)])
+def test_merkle_reduce_pow2_every_size_to_1024(n):
+    """N = 1 ... 1,024 against hashlib, and against the JAX program at a
+    few sizes (each size is a compile of its own there)."""
+    leaves = _REDUCE[:n]
+    got = port.merkle_reduce_pow2(_t(leaves))
+    assert got.shape == (8,) and got.dtype == torch.int32
+    hs = port.digests_to_bytes(leaves)
+    while len(hs) > 1:
+        hs = [hashlib.sha256(b"\x01" + hs[i] + hs[i + 1]).digest()
+              for i in range(0, len(hs), 2)]
+    assert port.digests_to_bytes(got[None]) == hs
+    if n in (1, 2, 4, 64, 1024):
+        want = np.asarray(ref.merkle_reduce_pow2(jnp.asarray(leaves)))
+        assert np.array_equal(_u32(got), want)
+
+
+def test_merkle_reduce_pow2_rejects_other_sizes():
+    for n in (0, 3, 6):
+        with pytest.raises(ValueError):
+            port.merkle_reduce_pow2(_t(_REDUCE[:n]))
+
+
 def test_host_helpers_match_reference():
     rng = np.random.default_rng(3)
     for n in (0, 1, 55, 56, 63, 64, 119, 120, 300):
@@ -142,3 +168,15 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
             assert torch.equal(g, w)
     assert torch.equal(port.merkle_reduce_pow2(left),
                        port.merkle_reduce_pow2(left.cpu()).to(cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 512, 1024, 65536])
+def test_merkle_reduce_kernel_matches_plain_version(cuda_device, n):
+    """K7: one launch up to 512 leaves, two beyond (to 262,144)."""
+    leaves = _words(np.random.default_rng(n), n, 8)
+    before = ops.LAUNCHES["merkle_reduce"]
+    got = port.merkle_reduce_pow2(port.to_tensor(leaves, cuda_device))
+    assert ops.LAUNCHES["merkle_reduce"] - before == (1 if n <= 512 else 2)
+    assert torch.equal(got.cpu(), port.merkle_reduce_pow2(_t(leaves)))
+
