@@ -8,7 +8,9 @@ drives the port's paths on the card:
   1. kernels vs plain versions: each kernel's wrapper (K1-K8) on CUDA
      tensors at the main paths' shapes, held bit for bit against its
      plain PyTorch version on the same inputs (tolerance: none — integer
-     arithmetic); K5's tables also hold the same points as K3's;
+     arithmetic); K5's tables also hold the same points as K3's; K3-K6
+     also at 1, 5 and 33 keys or signatures (a lone quad, a partial warp,
+     a tail block), with invalid keys and out-of-range key indices;
   2. path A, slice 1, end to end: 1,000 signed NYM requests
      (Max3PCBatchSize) from 1,000 DIDs, 8 of them corrupted,
      authenticated through make_verifier("cuda"); the accepted requests'
@@ -25,8 +27,10 @@ drives the port's paths on the card:
      Verdicts must be exactly the expected ones and roots hashlib's;
   4. path C, the field-chain probe: x^(2^64) over 2,048 columns;
   5. times: per kernel, the median of CUDA-event-timed launches after
-     warm-up, its plain version's time, and its bound on this card; the
-     plane's steps and the sharded batches.
+     warm-up, its plain version's time, and its bound on this card (K3-K6,
+     one quad of four threads per item, at 32, 64 and 128 threads per
+     block, each result held to the default's); the inversion's share of
+     K4; the plane's steps and the sharded batches.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails if a kernel of that path was never launched.
@@ -352,6 +356,59 @@ def main() -> int:
     if got6.tolist() != expect.tolist():
         raise AssertionError("ed25519_verify_staged verdicts differ from the "
                              "expected ones")
+    # K3-K6 at edge sizes (one quad per item: a lone quad, a partial warp,
+    # a tail past a full block), invalid keys and out-of-range indices
+    # included
+    edge_keys = [k_ for pair in zip(keys, bad_keys) for k_ in pair] + keys[8:]
+
+    def edge_items(n: int) -> list:
+        out = []
+        for i in range(n):
+            s = key_signers[i % max(1, (n + 2) // 3)]      # fewer keys than sigs
+            msg = b"edge %d %d" % (n, i)
+            sig = s.sign(msg)
+            if i % 4 == 1:
+                b = bytearray(sig); b[40] ^= 4; sig = bytes(b)
+            out.append((msg, sig, s.verkey))
+        return out
+
+    for n_e in (1, 5, 33):
+        k_e = torch.from_numpy(np.frombuffer(b"".join(edge_keys[:n_e]), np.uint8)
+                               .reshape(-1, 32).copy()).to(dev)
+        for g, w_ in zip(ed.decompress_kernel(k_e), ed.decompress_torch(k_e)):
+            bit_equal("ed25519_decompress", g, w_)
+        aq_e = aq5[:n_e].clone()
+        aq_e[-1] = torch.from_numpy(rng.integers(-2, 8196, size=aq_e[-1].shape)
+                                    .astype(np.int32)).to(dev)   # no point
+        bit_equal("ed25519_quarter_tables", ed.quarter_tables(aq_e),
+                  ed.quarter_tables_torch(aq_e))
+        items_e = edge_items(n_e)
+        _, st_e = limb_v.stage_limbs(items_e)      # K6: exactly n_e sigs
+        if n_e > 3:
+            items_e[3] = items_e[3][:2] + (bad_keys[1],)       # y >= p
+        want_e = [ed.pure_python_verify(*it) for it in items_e]
+        _, (s_e, h_e, kk_e, ix_e, r_e) = verifier.stage_bytes(items_e)
+        _, tab_e, val_e = ed.decompress_kernel(kk_e)
+        ok_e = ed.verify_tables(s_e, h_e, r_e, ix_e, tab_e, val_e)
+        bit_equal("ed25519_verify", ok_e, ed.verify_tables_torch(
+            s_e, h_e, r_e, ix_e, tab_e, val_e))
+        if ok_e.cpu().tolist() != want_e:
+            raise AssertionError(f"ed25519_verify at N = {n_e}: verdicts "
+                                 f"differ from the expected ones")
+        sd_e, hd_e, aqu_e, ixl_e, ry_e, rs_e = ed.stage_on(dev, *st_e)
+        tab6_e = ed.quarter_tables(aqu_e)
+        bit_equal("ed25519_quarter_tables", tab6_e,
+                  ed.quarter_tables_torch(aqu_e))
+        if n_e > 3:       # a signature whose key row is outside the table
+            ixl_e[-1] = aqu_e.shape[0]
+            ix_e[-1] = kk_e.shape[0]
+            oor = ed.verify_tables(s_e, h_e, r_e, ix_e, tab_e, val_e).cpu()
+            if oor[-1] or oor[:-1].tolist() != want_e[:-1]:
+                raise AssertionError("ed25519_verify: a key index outside "
+                                     "the table must give False alone")
+        bit_equal("ed25519_verify_staged",
+                  ed.verify_staged(sd_e, hd_e, ry_e, rs_e, ixl_e, tab6_e),
+                  ed.verify_staged_torch(sd_e, hd_e, ry_e, rs_e, ixl_e, tab6_e))
     # K7: roots at N = 1,024 (one block level, then the block roots) and
     # 65,536 (128 blocks, then one block over their roots)
     for n_leaves in (1024, 65536):
@@ -622,10 +679,33 @@ def main() -> int:
                                for t in k1_inputs])
     k2_insns = insns(sass_k2, [(1024 >> (lv + 1), 0) for lv in range(10)])
     n_sigs, n_keys = s_u8.shape[0], k_u8.shape[0]
-    table_bytes = tables_m.numel() * 4
+    key_table_bytes = tables_m[0].numel() * 4           # one key's tables
     comb_bytes = ed.comb_table_device(dev).numel() * 4
     n_rows5, n_sigs6 = aq5.shape[0], sd5.shape[1]
     k7_insns = insns(sass_k2, [(1023, 0)])
+
+    # the Ed25519 kernels' and K7's bounds over u keys / n signatures /
+    # a number of leaves (each input read once, each output written once)
+    def k3_bound(u):
+        return bound(u * (32 + 640 + 1 + key_table_bytes),
+                     2 * u * decomp_muls / per_pipe_per_s)
+
+    def k4_bound(n, u):
+        return bound(n * (3 * 32 + 4 + 1) + u * (key_table_bytes + 1)
+                     + comb_bytes, 2 * n * verify_muls / per_pipe_per_s)
+
+    def k5_bound(u):
+        return bound(u * (4 * 4 * 20 * 4 + key_table_bytes),
+                     2 * u * table_muls / per_pipe_per_s)
+
+    def k6_bound(n, u):
+        return bound(n * ((32 + 64 + 20 + 1 + 1) * 4 + 1)
+                     + u * key_table_bytes + comb_bytes,
+                     2 * n * verify_muls / per_pipe_per_s)
+
+    def k7_bound(n_leaves):
+        return bound(n_leaves * 32 + 32,
+                     op_time(insns(sass_k2, [(n_leaves - 1, 0)])))
     rows = [
         ("K1", "sha256_words", "plenum_tpu_torch/csrc/sha256.cu",
          "plenum_tpu/ops/sha256.py:87",
@@ -645,37 +725,32 @@ def main() -> int:
          "plenum_tpu/ops/ed25519.py:521",
          lambda: ed.decompress_kernel(k_u8),
          lambda: ed.decompress_torch(k_u8),
-         bound(n_keys * (32 + 640 + 1) + table_bytes,
-               2 * n_keys * decomp_muls / per_pipe_per_s),
+         k3_bound(n_keys),
          {"keys": n_keys, "launches_per_call": 1}),
         ("K4", "ed25519_verify", "plenum_tpu_torch/csrc/ed25519.cu",
          "plenum_tpu/ops/ed25519.py:599",
          lambda: ed.verify_tables(s_u8, h_u8, r_u8, idx_m, tables_m, valid_m),
          lambda: ed.verify_tables_torch(s_u8, h_u8, r_u8, idx_m, tables_m,
                                         valid_m),
-         bound(n_sigs * (3 * 32 + 4 + 1) + table_bytes + n_keys + comb_bytes,
-               2 * n_sigs * verify_muls / per_pipe_per_s),
+         k4_bound(n_sigs, n_keys),
          {"signatures": n_sigs, "keys": n_keys, "launches_per_call": 1}),
         ("K5", "ed25519_quarter_tables", "plenum_tpu_torch/csrc/ed25519.cu",
          "plenum_tpu/ops/ed25519.py:627",
          lambda: ed.quarter_tables(aq5),
          lambda: ed.quarter_tables_torch(aq5),
-         bound(aq5.numel() * 4 + tables5.numel() * 4,
-               2 * n_rows5 * table_muls / per_pipe_per_s),
+         k5_bound(n_rows5),
          {"key_rows": n_rows5, "launches_per_call": 1}),
         ("K6", "ed25519_verify_staged", "plenum_tpu_torch/csrc/ed25519.cu",
          "plenum_tpu/ops/ed25519.py:475",
          lambda: ed.verify_staged(sd5, hd5, ry5, rs5, ix5, tables5),
          lambda: ed.verify_staged_torch(sd5, hd5, ry5, rs5, ix5, tables5),
-         bound(n_sigs6 * ((32 + 64 + 20 + 1 + 1) * 4 + 1)
-               + tables5.numel() * 4 + comb_bytes,
-               2 * n_sigs6 * verify_muls / per_pipe_per_s),
+         k6_bound(n_sigs6, n_rows5),
          {"signatures": n_sigs6, "key_rows": n_rows5, "launches_per_call": 1}),
         ("K7", "merkle_reduce", "plenum_tpu_torch/csrc/sha256.cu",
          "plenum_tpu/ops/sha256.py:129",
          lambda: sha.merkle_reduce_pow2(plane_leaves),
          lambda: sha.merkle_reduce_pow2_torch(plane_leaves),
-         bound(1024 * 32 + 32, op_time(k7_insns)),
+         k7_bound(1024),
          {"leaves": 1024, "parents": 1023, "launches_per_call": 2}),
         ("K8", "field_chain", "plenum_tpu_torch/csrc/ed25519.cu",
          "probes/pallas_sqr_experiment.py:57",
@@ -690,18 +765,53 @@ def main() -> int:
     path_of = {"K1": "slice", "K2": "slice", "K3": "slice", "K4": "slice",
                "K5": "sharded", "K6": "sharded", "K7": "sharded",
                "K8": "probe"}
+    # one thread per item (block size fixed in csrc/sha256.cu and
+    # ed25519.cu) but for K3-K6: a quad per item, block size swept
+    fixed_geometry = {"sha256_words": 128, "sha256_interior": 128,
+                      "merkle_reduce": 256, "field_chain": 128}
+
+    def same(a, b) -> bool:
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
     kernels = []
     for kid, name, src, replaces, fn, plain, (b_ms, b_by), shape in rows:
+        by_block = None
+        if kid in ("K3", "K4", "K5", "K6"):
+            per_item, per_block = ed.THREADS_PER_ITEM, ed.THREADS_PER_BLOCK
+            want = fn()
+            by_block = {}
+            for tpb in (32, 64, 128):
+                ed.THREADS_PER_BLOCK = tpb
+                if not same(fn(), want):
+                    raise AssertionError(f"{name}: another result at {tpb} "
+                                         f"threads per block")
+                by_block[tpb] = median_ms(fn, 20)
+            ed.THREADS_PER_BLOCK = per_block
+        else:
+            per_item, per_block = 1, fixed_geometry[name]
         kernels.append({
             "id": kid, "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": path_counts[path_of[kid]][name],
             "max_abs_err": max_err[name],
-            "ms": median_ms(fn, 20), "plain_ms": median_ms(plain, 3, warm=1),
+            "ms": by_block[per_block] if by_block else median_ms(fn, 20),
+            "plain_ms": median_ms(plain, 3, warm=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "threads_per_item": per_item, "threads_per_block": per_block,
+            "ms_by_threads_per_block": by_block,
             "path": path_of[kid],
             "launches_by_path": {p_: c_[name] for p_, c_ in path_counts.items()},
             "launches_per_1000_txn_batch": batch_counts[name], "shape": shape})
+    # the inversion's share of K4: 254 squarings in lock-step on each of
+    # K4's 4 x N threads, timed as K8 over 4 N columns (one thread each)
+    inv_x = chain_x.repeat(1, (4 * n_sigs + 2047) // 2048)[:, :4 * n_sigs] \
+        .contiguous()
+    inv_ms = median_ms(lambda: field_chain(inv_x, 254), 20)
+    print(json.dumps({"inversion_share": {
+        "columns": 4 * n_sigs, "squarings": 254, "k8_ms": inv_ms,
+        "k4_ms": kernels[3]["ms"], "share_of_k4": inv_ms / kernels[3]["ms"]}}))
     print(json.dumps({"bound_basis": {
         "alu_or_fma_pipe_per_s": per_pipe_per_s, "issue_per_s": issue_per_s,
         "sm_clock_mhz": sm_mhz, "clocks_max_sm": max_clock,
@@ -747,18 +857,27 @@ def main() -> int:
         "launches_per_call": 1}}))
     # K7 at 65,536 leaves (two launches: 128 blocks, then one)
     leaves_64k = rand_words(65536)
-    k7_64k = bound(65536 * 32 + 32,
-                   op_time(insns(sass_k2, [(65535, 0)])))
+    k7_64k = k7_bound(65536)
     print(json.dumps({"merkle_reduce_65536": {
         "ms": median_ms(lambda: sha.merkle_reduce_pow2(leaves_64k), 20),
         "plain_ms": median_ms(
             lambda: sha.merkle_reduce_pow2_torch(leaves_64k), 3, warm=1),
         "bound_ms": k7_64k[0], "bound_by": k7_64k[1]}}))
     # B8: the plane's steps at grid [2, 1,024] on the 4-shard roster
+    # its bound: the sum of its kernels' bounds; per shard K3 + K4 (or K5
+    # + K6) over every staged key and its 2 x 1,024 / 4 signatures, and K7
+    # over its leaves, then K7 over the 4 shard roots
+    n_sh = plane.mesh.size
+    sigs_sh, leaves_sh = 2 * 1024 // n_sh, plane_leaves.shape[0] // n_sh
+    k7_sh = n_sh * k7_bound(leaves_sh)[0] + k7_bound(n_sh)[0]
     print(json.dumps({"plane_steps": {
-        "grid": [2, 1024], "shards": 4, "leaves": 1024,
+        "grid": [2, 1024], "shards": n_sh, "leaves": 1024,
         "step_bytes_ms": median_ms(lambda: plane.step_bytes(*args_pb), 10),
         "step_ms": median_ms(lambda: plane.step(*args_pl), 10),
+        "step_bytes_bound_ms": n_sh * (k3_bound(k_g.shape[0])[0] + k4_bound(
+            sigs_sh, k_g.shape[0])[0]) + k7_sh,
+        "step_bound_ms": n_sh * (k5_bound(aq_g.shape[0])[0] + k6_bound(
+            sigs_sh, aq_g.shape[0])[0]) + k7_sh,
         "sharded_authenticate_s": auth_s}}))
 
     # --- where one batch's time goes: host vs device -----------------------

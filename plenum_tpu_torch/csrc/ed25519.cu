@@ -26,28 +26,46 @@
 // per squaring against 160 bytes per column. Memory is nowhere near the
 // limit.
 //
-// Design: one thread per key (K3, K5), per signature (K4, K6) or per
-// column (K8), all state in registers, no cross-thread traffic. What the
-// TPU program did with one-hot matmuls on its matrix unit (selecting window-table and comb
-// entries by digit) is a plain indexed load here: the per-key tables
-// (10 KB each, written by K3) and the fixed-base comb table (32 x 256 niels
-// points, 960 KB, resident in device memory) are gathered by digit
-// straight from L2. Field elements use ref10's 10-limb radix-2^25.5 layout
-// with 64-bit products (fe25519.cuh) in place of the TPU's 20x13-bit int32
-// limbs; K5, K6 and K8 take the reference's 13-bit limbs as they are
-// staged and convert them in registers (fe_from_limbs13, signs kept). K4
-// and K6 share one ladder (verify_one), templated on how a signature's
-// digits are read and how R is compared; K3 and K5 share the table build
-// (build_key_tables), templated on where the quarter points come from.
-// The verdict semantics are the reference's exactly: cofactorless,
-// R compared as bytes (so a non-canonical R fails), keys rejected for
-// y >= p, off-curve, or x = 0 with the sign bit set; an invalid key forces
-// its signatures' verdicts to false.
+// Design: K3-K6 run each key or signature on a quad, four adjacent lanes
+// of a warp (fe25519.cuh, "quad point formulas"); K8 one thread per
+// column. Lane c of a quad holds coordinate c (X, Y, Z, T) of the running
+// point. Every point formula is two stages of four independent field
+// operations: in stage 1 each lane runs one, the quad all-gathers the four
+// results by shuffles, and in stage 2 lane c runs the product that becomes
+// coordinate c; ge_add's dependent 2d multiply is a stage of its own on
+// lane 3. Each lane runs exactly the field operations of the serial
+// formulas on the same inputs, so the tables and verdicts are limb for limb
+// the plain versions'. The square root (K3) and the final inversion,
+// canonicalisation and R compare (K4, K6) run in lock-step on all four
+// lanes; lane 0 stores the verdict. What the TPU program did with one-hot
+// matmuls on its matrix unit (selecting window-table and comb entries by
+// digit) is a plain indexed load here: the per-key tables (10 KB each,
+// written by K3 or K5, each lane storing its coordinate) and the
+// fixed-base comb table (32 x 256 niels points, 960 KB, resident in device
+// memory) are gathered by digit straight from L2, each lane loading only
+// the coordinates it multiplies. Field elements use ref10's 10-limb
+// radix-2^25.5 layout with 64-bit products (fe25519.cuh) in place of the
+// TPU's 20x13-bit int32 limbs; K5, K6 and K8 take the reference's 13-bit
+// limbs as they are staged and convert them in registers (fe_from_limbs13,
+// signs kept). K4 and K6 share one ladder (verify_one), templated on how a
+// signature's digits are read and how R is compared; K3 and K5 share the
+// table build (build_quarter_table). The verdict semantics are the
+// reference's exactly: cofactorless, R compared as bytes (so a
+// non-canonical R fails), keys rejected for y >= p, off-curve, or x = 0
+// with the sign bit set; an invalid key forces its signatures' verdicts to
+// false.
 //
-// What holds it back today: a batch of 1,024 signatures is 8 blocks of 128
-// threads on 132 SMs, so most of the card idles; and K3's per-key chain is
-// serial in one thread. Spreading a signature's field multiplies over a few
-// threads is later work.
+// What bounds it now: a batch of 1,000 items is 4,000 threads in 125
+// warps, fewer than the card's 528 warp schedulers, so each warp issues
+// its quad's chain alone on its scheduler and every latency shows; per
+// lane a signature is ~44,000 wide multiplies instead of ~128,500, a key
+// ~60,000 instead of ~184,000. The lock-step chains do not shrink: the
+// inversion (~15,000 per lane, a third of K4's) and the square root
+// (~15,900 of K3's). The table build's 2d multiplies ride in its
+// additions' 2d stage, which would otherwise leave three lanes idle.
+// Left for later: two or more lanes per field multiply (a product's
+// columns split over the quad, then over more lanes), so that more than
+// 125 warps are in flight and the lock-step chains shrink too.
 //
 // Plain C interface (bound with ctypes): each launcher returns
 // cudaGetLastError() right after its launch.
@@ -85,77 +103,60 @@ ED_HD fe fe_load(const int32_t* src) {
   return f;
 }
 
-ED_HD void ge_store(int32_t* dst, const ge& p) {
-  fe_store(dst, p.X);
-  fe_store(dst + 10, p.Y);
-  fe_store(dst + 20, p.Z);
-  fe_store(dst + 30, p.T);
-}
-
-ED_HD ge ge_load(const int32_t* src) {
-  ge p;
-  p.X = fe_load(src);
-  p.Y = fe_load(src + 10);
-  p.Z = fe_load(src + 20);
-  p.T = fe_load(src + 30);
-  return p;
-}
-
-// Store a table entry: (X, Y, Z, 2d*T).
-ED_HD void entry_store(int32_t* dst, const ge& p) {
-  fe_store(dst, p.X);
-  fe_store(dst + 10, p.Y);
-  fe_store(dst + 20, p.Z);
-  fe_store(dst + 30, fe_mul(p.T, fe_d2()));
-}
-
-// Window tables of a key's four quarter points: per quarter tab[0] = the
-// identity, tab[1] = q, tab[2j] = dbl(tab[j]), tab[2j+1] = tab[2j] + q.
-// Entries go straight to memory; doubling reads back only X, Y, Z (the T
-// slot holds 2d*T by then). `quarter(k)` yields quarter k as a carried
-// point: K3 reads back the points it just stored, K5 converts the
-// reference's 13-bit limb rows.
-template <class QuarterLoader>
-ED_HD void build_key_tables(const QuarterLoader& quarter, int32_t* tables) {
-  for (int k = 0; k < 4; ++k) {
-    ge q = quarter(k);
-    int32_t* tab = tables + k * kTableStride;
-    entry_store(tab, ge_identity());
-    entry_store(tab + kEntryStride, q);
-    for (int j = 1; j < 8; ++j) {
-      ge src = ge_load(tab + j * kEntryStride);
-      ge dbl = ge_double(src);
-      entry_store(tab + 2 * j * kEntryStride, dbl);
-      entry_store(tab + (2 * j + 1) * kEntryStride, ge_add(dbl, q));
-    }
+// The window table of one quarter point q, this lane holding coordinate
+// `q` of it: tab[0] = the identity, tab[1] = q, tab[2j] = dbl(tab[j]),
+// tab[2j+1] = tab[2j] + q, each entry stored as (X, Y, Z, 2d*T). Lanes
+// 0-2 store X, Y, Z. The 2d*T multiplies ride in each addition's 2d
+// stage, which would leave lanes 0-2 idle: lane 0 takes the doubling's
+// T, lane 1 the previous addition's (q's at first); the last one runs
+// after the loop. A doubling reads back X, Y and Z only.
+template <class Q>
+ED_HD void build_quarter_table(const Q& qd, const fe& q, int32_t* tab) {
+  int lane = qd.lane;
+  fe other = qd.shfl_xor(q, 1);
+  // q's stage-1 operand of ge_add: Y - X, Y + X, Z, T
+  fe rhs = quad_yx(lane, fe_select(lane == 0, other, q),
+                   fe_select(lane == 0, q, other), q);
+  // the identity (0, 1, 1, 0): its 2d*T, fe_mul(0, 2d), is 0
+  fe_store(tab + 10 * lane, fe_select(lane == 1 || lane == 2, fe_one(),
+                                      fe_zero()));
+  if (lane < 3) fe_store(tab + kEntryStride + 10 * lane, q);
+  fe pending = qd.shfl(q, 3);  // T of the last entry not yet stored
+  for (int j = 1; j < 8; ++j) {
+    fe src = j == 1 || lane == 3 ? q
+                                 : fe_load(tab + j * kEntryStride + 10 * lane);
+    fe dbl = quad_double(qd, src);
+    int32_t* even = tab + 2 * j * kEntryStride;
+    if (lane < 3) fe_store(even + 10 * lane, dbl);
+    fe t_dbl = qd.shfl(dbl, 3);  // every lane takes part in a shuffle
+    fe side = lane == 0 ? t_dbl : pending;
+    fe sum = quad_add(qd, dbl, rhs, kQuadAdd, &side);
+    if (lane == 0) fe_store(even + 30, side);
+    if (lane == 1) fe_store(even - kEntryStride + 30, side);
+    if (lane < 3) fe_store(even + kEntryStride + 10 * lane, sum);
+    pending = qd.shfl(sum, 3);
   }
+  if (lane == 3) fe_store(tab + 15 * kEntryStride + 30, fe_mul(pending, fe_d2()));
 }
 
-// Quarter points in the port's layout: quarters [4][4 coords][10].
-struct FeQuarters {
-  const int32_t* rows;
-  ED_HD ge operator()(int k) const { return ge_load(rows + k * kQuarterStride); }
-};
+// K5, one key row on a quad: the reference's staged quarter points
+// int32 [4][4 coords][20] of 13-bit limbs (ext_quarters, carried or
+// canonical); lane c converts coordinate c of each.
+template <class Q>
+ED_HD void quarter_tables_one(const Q& qd, const int32_t* rows,
+                              int32_t* tables) {
+  for (int k = 0; k < 4; ++k)
+    build_quarter_table(qd, fe_from_limbs13(rows + k * 4 * 20 + 20 * qd.lane, 1),
+                        tables + k * kTableStride);
+}
 
-// Quarter points in the reference's layout: int32 [4][4 coords][20] of
-// 13-bit limbs (ext_quarters), carried or canonical.
-struct Limb13Quarters {
-  const int32_t* rows;
-  ED_HD ge operator()(int k) const {
-    const int32_t* q = rows + k * 4 * 20;
-    ge p;
-    p.X = fe_from_limbs13(q, 1);
-    p.Y = fe_from_limbs13(q + 20, 1);
-    p.Z = fe_from_limbs13(q + 40, 1);
-    p.T = fe_from_limbs13(q + 60, 1);
-    return p;
-  }
-};
-
-// K3, one key: RFC 8032 §5.1.3 decompression of A, then -A's quarter
-// points [2^(64k)](-A) and their 16-entry window tables.
-ED_HD void decompress_one(const uint8_t* key, int32_t* quarters,
+// K3, one key on a quad: RFC 8032 §5.1.3 decompression of A (the square
+// root in lock-step on all four lanes), then -A's quarter points
+// [2^(64k)](-A) by quad doublings, each followed by its window table.
+template <class Q>
+ED_HD void decompress_one(const Q& qd, const uint8_t* key, int32_t* quarters,
                           int32_t* tables, bool* valid) {
+  int lane = qd.lane;
   int32_t sign = key[31] >> 7;
   fe y = fe_from_bytes(key);
   bool noncanon = fe_ge_p(y) != 0;
@@ -176,19 +177,15 @@ ED_HD void decompress_one(const uint8_t* key, int32_t* quarters,
   bool flip = (xc.v[0] & 1) != sign;
   // A = (x with the sign bit's parity, y); the ladder wants -A = (-x, y)
   fe negx = flip ? xc : neg_xc;
-  *valid = (ok1 || ok2) && !noncanon && !(x_zero && sign == 1);
+  if (lane == 0) *valid = (ok1 || ok2) && !noncanon && !(x_zero && sign == 1);
 
-  ge pt;
-  pt.X = negx;
-  pt.Y = y;
-  pt.Z = one;
-  pt.T = fe_mul(negx, y);
+  fe pt = lane == 0 ? negx : lane == 1 ? y : lane == 2 ? one : fe_mul(negx, y);
   for (int k = 0; k < 4; ++k) {
     if (k > 0)
-      for (int i = 0; i < 64; ++i) pt = ge_double(pt);
-    ge_store(quarters + k * kQuarterStride, pt);
+      for (int i = 0; i < 64; ++i) pt = quad_double(qd, pt);
+    fe_store(quarters + k * kQuarterStride + 10 * lane, pt);
+    build_quarter_table(qd, pt, tables + k * kTableStride);
   }
-  build_key_tables(FeQuarters{quarters}, tables);
 }
 
 // A signature's operands as K4 reads them: raw S, h and R bytes.
@@ -234,25 +231,37 @@ struct StagedSig {
   }
 };
 
-// K4 and K6, one signature: compress([S]B + [h](-A)) == R, A's tables
-// given; `sig` supplies the digits and the compare.
-template <class Sig>
-ED_HD bool verify_one(const Sig& sig, const int32_t* key_tables,
+// K4 and K6, one signature on a quad: compress([S]B + [h](-A)) == R, A's
+// tables given; `sig` supplies the digits (every lane reads the same) and
+// the compare. Each lane loads only the coordinates of a table or comb
+// entry that it multiplies. The inversion, the canonicalisation and the
+// compare run in lock-step on all four lanes.
+template <class Q, class Sig>
+ED_HD bool verify_one(const Q& qd, const Sig& sig, const int32_t* key_tables,
                       const int32_t* comb) {
-  ge acc = ge_identity();
+  int lane = qd.lane;
+  fe acc = fe_select(lane == 1 || lane == 2, fe_one(), fe_zero());
   for (int t = 15; t >= 0; --t) {      // MSB-first 4-bit windows
-    for (int i = 0; i < 4; ++i) acc = ge_double(acc);
-    for (int q = 0; q < 4; ++q)
-      acc = ge_add_t2d(acc, ge_load(key_tables + q * kTableStride +
-                                    sig.h_digit(q, t) * kEntryStride));
+    for (int i = 0; i < 4; ++i) acc = quad_double(qd, acc);
+    for (int q = 0; q < 4; ++q) {
+      const int32_t* e =
+          key_tables + q * kTableStride + sig.h_digit(q, t) * kEntryStride;
+      fe a = fe_load(e + 10 * (lane < 2 ? 1 : lane));  // Y2, Y2, Z2, 2dT2
+      fe b = lane < 2 ? fe_load(e) : a;                 // X2
+      acc = quad_add(qd, acc, quad_yx(lane, a, b, a), kQuadAddT2d);
+    }
   }
   for (int w = 0; w < 32; ++w) {       // fixed-base comb, 8-bit digits of S
+    // niels (y+x, y-x, 2dxy): lane 0 takes y-x, lane 1 y+x, lane 3 2dxy
     const int32_t* e = comb + ((size_t)w * 256 + sig.s_digit(w)) * 30;
-    acc = ge_madd(acc, fe_load(e), fe_load(e + 10), fe_load(e + 20));
+    fe rhs = lane == 2 ? fe_zero()
+                       : fe_load(e + (lane == 0 ? 10 : lane == 3 ? 20 : 0));
+    acc = quad_add(qd, acc, rhs, kQuadMadd);
   }
-  fe zinv = fe_inv(acc.Z);
-  fe x = fe_canon(fe_mul(acc.X, zinv));
-  fe y = fe_canon(fe_mul(acc.Y, zinv));
+  fe px = qd.shfl(acc, 0), py = qd.shfl(acc, 1), pz = qd.shfl(acc, 2);
+  fe zinv = fe_inv(pz);
+  fe x = fe_canon(fe_mul(px, zinv));
+  fe y = fe_canon(fe_mul(py, zinv));
   return sig.matches(x, y);
 }
 
@@ -265,14 +274,25 @@ ED_HD void field_chain_one(const int32_t* x, int32_t* out, int stride, int k) {
 
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(64)
+// K3-K6 run one item per quad: thread t of the grid is lane t & 3 of item
+// t >> 2 (blocks hold a multiple of 4 threads, so a quad never straddles
+// two blocks or warps). A tail quad past the last item leaves as a whole
+// before its first shuffle, and every shuffle names only its own quad's
+// lanes, so nothing waits on it; likewise a signature whose key index is
+// outside the table is settled by its whole quad at once.
+__device__ __forceinline__ int quad_item() {
+  return (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 2);
+}
+
+__global__ void __launch_bounds__(128)
 k_ed25519_decompress(const uint8_t* __restrict__ keys,
                      int32_t* __restrict__ quarters,
                      int32_t* __restrict__ tables,
                      bool* __restrict__ valid, int n_keys) {
-  int u = blockIdx.x * blockDim.x + threadIdx.x;
+  int u = quad_item();
   if (u >= n_keys) return;
-  decompress_one(keys + (size_t)u * 32, quarters + (size_t)u * 4 * kQuarterStride,
+  decompress_one(warp_quad(), keys + (size_t)u * 32,
+                 quarters + (size_t)u * 4 * kQuarterStride,
                  tables + (size_t)u * kKeyTableStride, valid + u);
 }
 
@@ -283,25 +303,26 @@ k_ed25519_verify(const uint8_t* __restrict__ s, const uint8_t* __restrict__ h,
                  const bool* __restrict__ valid,
                  const int32_t* __restrict__ comb, bool* __restrict__ out,
                  int n, int n_keys) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int i = quad_item();
   if (i >= n) return;
+  WarpQuad qd = warp_quad();
   int u = idx[i];
   if (u < 0 || u >= n_keys) {
-    out[i] = false;
+    if (qd.lane == 0) out[i] = false;
     return;
   }
   BytesSig sig{s + (size_t)i * 32, h + (size_t)i * 32, r + (size_t)i * 32};
-  bool ok = verify_one(sig, tables + (size_t)u * kKeyTableStride, comb);
-  out[i] = ok && valid[u];
+  bool ok = verify_one(qd, sig, tables + (size_t)u * kKeyTableStride, comb);
+  if (qd.lane == 0) out[i] = ok && valid[u];
 }
 
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(128)
 k_ed25519_quarter_tables(const int32_t* __restrict__ aq,
                          int32_t* __restrict__ tables, int n_rows) {
-  int u = blockIdx.x * blockDim.x + threadIdx.x;
+  int u = quad_item();
   if (u >= n_rows) return;
-  build_key_tables(Limb13Quarters{aq + (size_t)u * 4 * 4 * 20},
-                   tables + (size_t)u * kKeyTableStride);
+  quarter_tables_one(warp_quad(), aq + (size_t)u * 4 * 4 * 20,
+                     tables + (size_t)u * kKeyTableStride);
 }
 
 __global__ void __launch_bounds__(128)
@@ -313,15 +334,17 @@ k_ed25519_verify_staged(const int32_t* __restrict__ s_digits,
                         const int32_t* __restrict__ tables,
                         const int32_t* __restrict__ comb,
                         bool* __restrict__ out, int n, int n_rows) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int i = quad_item();
   if (i >= n) return;
+  WarpQuad qd = warp_quad();
   int u = idx[i];
   if (u < 0 || u >= n_rows) {
-    out[i] = false;
+    if (qd.lane == 0) out[i] = false;
     return;
   }
   StagedSig sig{s_digits, h_digits, ry + (size_t)i * 20, r_sign[i], n, i};
-  out[i] = verify_one(sig, tables + (size_t)u * kKeyTableStride, comb);
+  bool ok = verify_one(qd, sig, tables + (size_t)u * kKeyTableStride, comb);
+  if (qd.lane == 0) out[i] = ok;
 }
 
 __global__ void __launch_bounds__(128)
@@ -332,12 +355,19 @@ k_field_chain(const int32_t* __restrict__ x, int32_t* __restrict__ out, int n,
   field_chain_one(x + i, out + i, n, k);
 }
 
+// Blocks of `threads` threads (4 to 128, a multiple of 4), four per item.
+static bool quad_blocks(int n_items, int threads, int* blocks) {
+  if (threads < 4 || threads > 128 || threads % 4) return false;
+  *blocks = (int)(((long long)n_items * 4 + threads - 1) / threads);
+  return true;
+}
+
 extern "C" int ed25519_decompress_launch(const void* keys, void* quarters,
                                          void* tables, void* valid, int n_keys,
-                                         void* stream) {
-  const int threads = 64;
-  k_ed25519_decompress<<<(n_keys + threads - 1) / threads, threads, 0,
-                         (cudaStream_t)stream>>>(
+                                         int threads, void* stream) {
+  int blocks;
+  if (!quad_blocks(n_keys, threads, &blocks)) return (int)cudaErrorInvalidValue;
+  k_ed25519_decompress<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)keys, (int32_t*)quarters, (int32_t*)tables,
       (bool*)valid, n_keys);
   return (int)cudaGetLastError();
@@ -347,10 +377,10 @@ extern "C" int ed25519_verify_launch(const void* s, const void* h,
                                      const void* r, const void* idx,
                                      const void* tables, const void* valid,
                                      const void* comb, void* out, int n,
-                                     int n_keys, void* stream) {
-  const int threads = 128;
-  k_ed25519_verify<<<(n + threads - 1) / threads, threads, 0,
-                     (cudaStream_t)stream>>>(
+                                     int n_keys, int threads, void* stream) {
+  int blocks;
+  if (!quad_blocks(n, threads, &blocks)) return (int)cudaErrorInvalidValue;
+  k_ed25519_verify<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)s, (const uint8_t*)h, (const uint8_t*)r,
       (const int32_t*)idx, (const int32_t*)tables, (const bool*)valid,
       (const int32_t*)comb, (bool*)out, n, n_keys);
@@ -358,10 +388,11 @@ extern "C" int ed25519_verify_launch(const void* s, const void* h,
 }
 
 extern "C" int ed25519_quarter_tables_launch(const void* aq, void* tables,
-                                             int n_rows, void* stream) {
-  const int threads = 64;
-  k_ed25519_quarter_tables<<<(n_rows + threads - 1) / threads, threads, 0,
-                             (cudaStream_t)stream>>>(
+                                             int n_rows, int threads,
+                                             void* stream) {
+  int blocks;
+  if (!quad_blocks(n_rows, threads, &blocks)) return (int)cudaErrorInvalidValue;
+  k_ed25519_quarter_tables<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)aq, (int32_t*)tables, n_rows);
   return (int)cudaGetLastError();
 }
@@ -369,10 +400,10 @@ extern "C" int ed25519_quarter_tables_launch(const void* aq, void* tables,
 extern "C" int ed25519_verify_staged_launch(
     const void* s_digits, const void* h_digits, const void* ry,
     const void* r_sign, const void* idx, const void* tables, const void* comb,
-    void* out, int n, int n_rows, void* stream) {
-  const int threads = 128;
-  k_ed25519_verify_staged<<<(n + threads - 1) / threads, threads, 0,
-                            (cudaStream_t)stream>>>(
+    void* out, int n, int n_rows, int threads, void* stream) {
+  int blocks;
+  if (!quad_blocks(n, threads, &blocks)) return (int)cudaErrorInvalidValue;
+  k_ed25519_verify_staged<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)s_digits, (const int32_t*)h_digits, (const int32_t*)ry,
       (const int32_t*)r_sign, (const int32_t*)idx, (const int32_t*)tables,
       (const int32_t*)comb, (bool*)out, n, n_rows);

@@ -1,5 +1,7 @@
 // GF(2^255 - 19) and twisted Edwards point arithmetic for the Ed25519
-// kernels (csrc/ed25519.cu), one field element per thread in registers.
+// kernels (csrc/ed25519.cu), field elements in registers: the serial point
+// formulas keep a point in one thread, the quad formulas at the end spread
+// it over four lanes.
 //
 // Layout: 10 signed int32 limbs in radix 2^25.5 (ref10's): limb i sits at
 // bit 0, 26, 51, 77, ... and is 26 bits wide when i is even, 25 when odd.
@@ -8,11 +10,13 @@
 // "Carried" limbs satisfy |limb| < 2^26 + 2^7. fe_mul/fe_sq take carried
 // inputs: products stay below 2^57.3 and each 10-term sum below 2^61; three
 // parallel carry passes then bring the result back to carried form.
-// fe_add/fe_sub of carried inputs need one pass. Every operation here is
-// the one the plain PyTorch version in plenum_tpu_torch/ops/ed25519.py runs
-// (same passes, same order), so kernel and plain version agree limb for
-// limb. Squaring sums the same products as fe_mul(f, f), pairing the
-// symmetric ones: the integers, and so the limbs, are identical.
+// fe_add/fe_sub of carried inputs need one pass. Every operation here
+// computes the integers the plain PyTorch version in
+// plenum_tpu_torch/ops/ed25519.py computes (the same sums, the same carry
+// passes in the same order; a pass may run in 32 bits where the values
+// fit), so kernel and plain version agree limb for limb. Squaring sums the
+// same products as fe_mul(f, f), pairing the symmetric ones: the integers,
+// and so the limbs, are identical.
 //
 // Device functions under nvcc; plain inline C++ otherwise, so the same code
 // also compiles for the host for a differential check without a GPU.
@@ -94,13 +98,22 @@ FE_HD fe fe_sub(const fe& f, const fe& g) {
   return h;
 }
 
+// Three carry passes of 10 int64 column sums (each below 2^61) into
+// carried limbs. After the first pass a value is below 2^41, so the
+// second pass's carry and kept bits fit in 32 bits and its result below
+// 2^27: the second pass takes the carries in int64 and adds in int32, the
+// third is fe_carry. The integers are those of three fe_carry64 passes.
 FE_HD fe fe_from64(int64_t t[10]) {
   fe_carry64(t);
-  fe_carry64(t);
-  fe_carry64(t);
+  int32_t c[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) c[i] = (int32_t)(t[i] >> fe_bits(i));
   fe h;
 #pragma unroll
-  for (int i = 0; i < 10; ++i) h.v[i] = (int32_t)t[i];
+  for (int i = 0; i < 10; ++i)
+    h.v[i] = ((int32_t)t[i] & ((1 << fe_bits(i)) - 1)) +
+             (i == 0 ? 19 * c[9] : c[i - 1]);
+  fe_carry(h);
   return h;
 }
 
@@ -128,7 +141,9 @@ FE_HD fe fe_mul(const fe& f, const fe& g) {
   return fe_from64(t);
 }
 
-// fe_mul(f, f) with the symmetric products paired: 55 multiplies.
+// fe_mul(f, f) with the symmetric products paired: 55 multiplies. A pair
+// (j > i) adds 2 a b as (2 a) b, 2 a below 2^29: the same integer, one
+// multiply-add.
 FE_HD fe fe_sq(const fe& f) {
   int64_t t[10];
 #pragma unroll
@@ -139,8 +154,7 @@ FE_HD fe fe_sq(const fe& f) {
     for (int j = i; j < 10; ++j) {
       int32_t a = ((i & 1) && (j & 1)) ? 2 * f.v[i] : f.v[i];
       int32_t b = (i + j >= 10) ? 19 * f.v[j] : f.v[j];
-      int64_t prod = (int64_t)a * b;
-      t[(i + j) % 10] += (j > i) ? 2 * prod : prod;
+      t[(i + j) % 10] += (int64_t)((j > i) ? 2 * a : a) * b;
     }
   }
   return fe_from64(t);
@@ -366,3 +380,167 @@ FE_HD ge ge_double(const ge& p) {
   r.T = fe_mul(e, h);
   return r;
 }
+
+// --- quad point formulas ---------------------------------------------------
+// One point on a team of four adjacent lanes (a "quad"): lane c holds
+// coordinate c (X, Y, Z, T) of the point. Every formula above is two
+// stages of four independent field operations; in stage 1 each lane runs
+// one of them, the quad all-gathers the four results (quad_gather), every
+// lane forms the sums it needs, and in stage 2 lane c runs the product
+// that becomes coordinate c. Each lane runs exactly the
+// field operations the serial formulas run, on the same inputs, so the
+// limbs are the serial ones.
+//
+// The per-lane math takes (lane, values); the exchange is an object `Q`
+// with `lane`, `shfl(v, src)` (v of quad lane src) and `shfl_xor(v, m)`
+// (v of lane ^ m): WarpQuad below on the card, HostQuad (four host
+// threads meeting at a barrier) when the file is compiled as host C++.
+
+FE_HD fe fe_select(bool c, const fe& a, const fe& b) {  // c ? a : b
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) r.v[i] = c ? a.v[i] : b.v[i];
+  return r;
+}
+
+// The quad's four values in lane order: four 10-limb shuffles, one from
+// each lane (this lane's own included). On the card this ran faster than
+// three xor shuffles followed by the 80 selects that put their results in
+// lane order.
+template <class Q>
+FE_HD void quad_gather(const Q& qd, const fe& own, fe g[4]) {
+  for (int j = 0; j < 4; ++j) g[j] = qd.shfl(own, j);
+}
+
+// An addition's stage-1 left operand: lane 0 y - x, lane 1 y + x (one
+// carry pass each, as fe_sub and fe_add), lanes 2 and 3 w.
+FE_HD fe quad_yx(int lane, const fe& y, const fe& x, const fe& w) {
+  if (lane == 0) return fe_sub(y, x);
+  if (lane == 1) return fe_add(y, x);
+  return w;
+}
+
+// The common tail from the gathered (a, b, d, c): e = b - a, f = d - c,
+// g = d + c, h = b + a; lane c's stage-2 operands (e, f), (g, h), (f, g),
+// (e, h).
+FE_HD void quad_tail_add(int lane, const fe g4[4], fe& l, fe& r) {
+  fe e = fe_sub(g4[1], g4[0]), f = fe_sub(g4[2], g4[3]);
+  fe g = fe_add(g4[2], g4[3]), h = fe_add(g4[1], g4[0]);
+  l = fe_select(lane == 1, g, fe_select(lane == 2, f, e));
+  r = fe_select(lane == 0, f, fe_select(lane == 2, g, h));
+}
+
+// ge_double's tail from the gathered (X^2, (X+Y)^2, Z^2, Y^2).
+FE_HD void quad_tail_double(int lane, const fe g4[4], fe& l, fe& r) {
+  fe zz2 = fe_add(g4[2], g4[2]);
+  fe h = fe_add(g4[0], g4[3]);
+  fe e = fe_sub(h, g4[1]);
+  fe g = fe_sub(g4[0], g4[3]);
+  fe f = fe_add(zz2, g);
+  l = fe_select(lane == 1, g, fe_select(lane == 2, f, e));
+  r = fe_select(lane == 0, f, fe_select(lane == 2, g, h));
+}
+
+// ge_double on a quad: this lane's coordinate of 2p. Stage 1: lane 0 X^2,
+// lane 1 (X+Y)^2, lane 2 Z^2, lane 3 Y^2 (lanes 1 and 3 take X or Y from
+// lanes 0 and 1 in one shuffle).
+template <class Q>
+FE_HD fe quad_double(const Q& qd, const fe& own) {
+  int lane = qd.lane;
+  fe other = qd.shfl(own, lane == 1 ? 0 : 1);
+  fe s = lane == 1 ? fe_add(other, own) : fe_select(lane == 3, other, own);
+  fe g4[4], l, r;
+  quad_gather(qd, fe_sq(s), g4);
+  quad_tail_double(lane, g4, l, r);
+  return fe_mul(l, r);
+}
+
+enum QuadAddKind {
+  kQuadAddT2d,  // ge_add_t2d: the operand's T holds 2d*T
+  kQuadAdd,     // ge_add: the extra multiply by 2d, on lane 3
+  kQuadMadd,    // ge_madd: an affine niels operand, Z = 1
+};
+
+// An addition on a quad: this lane's coordinate of p + q. `rhs` is this
+// lane's stage-1 right operand: Y2 - X2, Y2 + X2, Z2, T2 (or 2d*T2) for
+// ge_add_t2d and ge_add (quad_yx of q's coordinates), y-x, y+x, unused,
+// 2dxy for ge_madd. Stage 1: lane 0 a, lane 1 b, lane 2 d (2 Z Z2, or 2 Z
+// for ge_madd), lane 3 c; lanes 0 and 1 swap X and Y first. ge_add's
+// multiply of c by 2d is a stage of its own on lane 3, which the other
+// lanes may fill: with `side`, lanes 0-2 turn *side into *side * 2d there.
+template <class Q>
+FE_HD fe quad_add(const Q& qd, const fe& own, const fe& rhs,
+                  QuadAddKind kind, fe* side = nullptr) {
+  int lane = qd.lane;
+  fe other = qd.shfl_xor(own, 1);
+  fe p;
+  if (kind == kQuadMadd && lane == 2) {
+    p = fe_add(own, own);
+  } else {
+    p = fe_mul(quad_yx(lane, fe_select(lane == 0, other, own),
+                       fe_select(lane == 0, own, other), own),
+               rhs);
+    if (lane == 2) p = fe_add(p, p);
+  }
+  if (kind == kQuadAdd) {
+    if (side) {
+      fe m = fe_mul(lane == 3 ? p : *side, fe_d2());
+      if (lane == 3) p = m;
+      else *side = m;
+    } else if (lane == 3) {
+      p = fe_mul(p, fe_d2());
+    }
+  }
+  fe g4[4], l, r;
+  quad_gather(qd, p, g4);
+  quad_tail_add(lane, g4, l, r);
+  return fe_mul(l, r);
+}
+
+#ifdef __CUDACC__
+// The exchange on the card: shuffles over this thread's quad only (width
+// 4, the quad's four bits in the mask), so a quad that has left does not
+// strand the others of its warp.
+struct WarpQuad {
+  int lane;
+  unsigned mask;
+  __device__ fe shfl(const fe& v, int src) const {
+    fe r;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) r.v[i] = __shfl_sync(mask, v.v[i], src, 4);
+    return r;
+  }
+  __device__ fe shfl_xor(const fe& v, int m) const {
+    fe r;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) r.v[i] = __shfl_xor_sync(mask, v.v[i], m, 4);
+    return r;
+  }
+};
+
+__device__ __forceinline__ WarpQuad warp_quad() {
+  int t = threadIdx.x & 31;
+  return WarpQuad{t & 3, 0xFu << (t & ~3)};
+}
+#else
+#include <barrier>
+// The exchange on the host: four threads, one per lane, share `slots`;
+// each publishes its value, all meet, each reads its source, all meet.
+struct HostQuadSlots {
+  fe v[4];
+  std::barrier<> meet{4};
+};
+
+struct HostQuad {
+  int lane;
+  HostQuadSlots* s;
+  fe shfl(const fe& v, int src) const {
+    s->v[lane] = v;
+    s->meet.arrive_and_wait();
+    fe r = s->v[src];
+    s->meet.arrive_and_wait();
+    return r;
+  }
+  fe shfl_xor(const fe& v, int m) const { return shfl(v, lane ^ m); }
+};
+#endif

@@ -506,6 +506,12 @@ def verify_staged_torch(s_digits, h_digits, ry, r_sign, idx, tables):
 
 _CONFIGURED = False
 
+# K3-K6 run each key or signature on four lanes (a quad), in blocks of
+# THREADS_PER_BLOCK threads (a multiple of 4, at most 128; read at every
+# launch): 32 was the fastest or tied for all four on the H100
+THREADS_PER_ITEM = 4
+THREADS_PER_BLOCK = 32
+
 
 def lib() -> ctypes.CDLL:
     """csrc/ed25519.cu's library, its launchers' signatures set."""
@@ -513,12 +519,13 @@ def lib() -> ctypes.CDLL:
     cdll = ops.lib("ed25519")
     if not _CONFIGURED:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        cdll.ed25519_decompress_launch.argtypes = [vp, vp, vp, vp, ci, vp]
+        cdll.ed25519_decompress_launch.argtypes = [vp, vp, vp, vp, ci, ci,
+                                                  vp]
         cdll.ed25519_verify_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                              vp, ci, ci, vp]
-        cdll.ed25519_quarter_tables_launch.argtypes = [vp, vp, ci, vp]
+                                              vp, ci, ci, ci, vp]
+        cdll.ed25519_quarter_tables_launch.argtypes = [vp, vp, ci, ci, vp]
         cdll.ed25519_verify_staged_launch.argtypes = [vp, vp, vp, vp, vp, vp,
-                                                     vp, vp, ci, ci, vp]
+                                                     vp, vp, ci, ci, ci, vp]
         cdll.field_chain_launch.argtypes = [vp, vp, ci, ci, vp]
         for fn in (cdll.ed25519_decompress_launch, cdll.ed25519_verify_launch,
                    cdll.ed25519_quarter_tables_launch,
@@ -551,7 +558,8 @@ def decompress_kernel(keys_u8: torch.Tensor):
     if u_:
         ops.checked(lib().ed25519_decompress_launch(
             ops.ptr(keys_u8), ops.ptr(quarters), ops.ptr(tables),
-            ops.ptr(valid), u_, ops.stream_handle(dev)), "ed25519_decompress")
+            ops.ptr(valid), u_, THREADS_PER_BLOCK,
+            ops.stream_handle(dev)), "ed25519_decompress")
         ops.count("ed25519_decompress")
     return quarters, tables, valid
 
@@ -576,7 +584,8 @@ def verify_tables(s_u8, h_u8, r_u8, idx, tables, valid) -> torch.Tensor:
         ops.checked(lib().ed25519_verify_launch(
             ops.ptr(s_u8), ops.ptr(h_u8), ops.ptr(r_u8), ops.ptr(idx),
             ops.ptr(tables), ops.ptr(valid), ops.ptr(comb), ops.ptr(out),
-            n, tables.shape[0], ops.stream_handle(dev)), "ed25519_verify")
+            n, tables.shape[0], THREADS_PER_BLOCK,
+            ops.stream_handle(dev)), "ed25519_verify")
         ops.count("ed25519_verify")
     return out
 
@@ -611,8 +620,8 @@ def quarter_tables(aq: torch.Tensor) -> torch.Tensor:
                          device=aq.device)
     if u_:
         ops.checked(lib().ed25519_quarter_tables_launch(
-            ops.ptr(aq), ops.ptr(tables), u_, ops.stream_handle(aq.device)),
-            "ed25519_quarter_tables")
+            ops.ptr(aq), ops.ptr(tables), u_, THREADS_PER_BLOCK,
+            ops.stream_handle(aq.device)), "ed25519_quarter_tables")
         ops.count("ed25519_quarter_tables")
     return tables
 
@@ -639,7 +648,8 @@ def verify_staged(s_digits, h_digits, ry, r_sign, idx, tables) -> torch.Tensor:
         ops.checked(lib().ed25519_verify_staged_launch(
             ops.ptr(s_digits), ops.ptr(h_digits), ops.ptr(ry), ops.ptr(r_sign),
             ops.ptr(idx), ops.ptr(tables), ops.ptr(comb), ops.ptr(out), n,
-            tables.shape[0], ops.stream_handle(dev)), "ed25519_verify_staged")
+            tables.shape[0], THREADS_PER_BLOCK,
+            ops.stream_handle(dev)), "ed25519_verify_staged")
         ops.count("ed25519_verify_staged")
     return out
 

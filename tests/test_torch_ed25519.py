@@ -214,22 +214,45 @@ def _cases():
         (msg, sig, (P + 1).to_bytes(32, "little")),                # A: y >= p
     ]
     cases["bad_keys"] = [(msg, sig, k) for k in _BAD_KEYS]
+    # the kernels' edge sizes (chip_smoke.py): N signatures over fewer
+    # keys, every fourth with S flipped, one (N > 3) under a key y >= p;
+    # each is verified as a batch of its own
+    edge_signers = [RefSigner(bytes([i + 120]) * 32) for i in range(11)]
+    for n in _EDGE_SIZES:
+        group = []
+        for i in range(n):
+            s = edge_signers[i % max(1, (n + 2) // 3)]
+            m = b"edge %d %d" % (n, i)
+            sig = s.sign(m)
+            group.append((m, _flip(sig, 40, 2) if i % 4 == 1 else sig,
+                          s.verkey))
+        if n > 3:
+            group[3] = group[3][:2] + (_BAD_KEYS[0],)
+        cases[f"edge_{n}"] = group
     return cases
 
 
+_EDGE_SIZES = (1, 5, 33)
 _CASES = _cases()
+_EDGE = {f"edge_{n}" for n in _EDGE_SIZES}
 
 
 @pytest.fixture(scope="module")
 def verdicts():
-    """One batched verification per backend over every case class."""
-    items = [it for group in _CASES.values() for it in group]
+    """One batched verification over every case class but the edge
+    sizes; each edge size alone, by the byte and the limb dispatch."""
+    batched = {k: v for k, v in _CASES.items() if k not in _EDGE}
+    items = [it for group in batched.values() for it in group]
     assert len(items) & (len(items) - 1)            # not a power of two
     got = make_verifier("torch").verify_batch(items)
     out, at = {}, 0
-    for name, group in _CASES.items():
+    for name, group in batched.items():
         out[name] = got[at:at + len(group)].tolist()
         at += len(group)
+    for name in _EDGE:
+        out[name] = make_verifier("torch").verify_batch(_CASES[name]).tolist()
+        out[name + ":limbs"] = _limb_verifier().verify_batch(
+            _CASES[name]).tolist()
     return out
 
 
@@ -239,8 +262,11 @@ def test_verdicts_match_reference(case, verdicts):
     want_py = [ref.pure_python_verify(*it) for it in group]
     want_cpu = CpuEd25519Verifier().verify_batch(group).tolist()
     assert verdicts[case] == want_py == want_cpu
-    if case in ("rfc8032", "valid"):
+    if case in ("rfc8032", "valid", "edge_1"):
         assert all(verdicts[case])
+    elif case in _EDGE:
+        assert verdicts[case + ":limbs"] == want_py
+        assert any(want_py) and not all(want_py)
     else:
         assert not any(verdicts[case])
 
