@@ -10,14 +10,20 @@ drives the port's paths on the card:
      plain PyTorch version on the same inputs (tolerance: none — integer
      arithmetic); K5's tables also hold the same points as K3's; K3-K6
      also at 1, 5 and 33 keys or signatures (a lone quad, a partial warp,
-     a tail block), with invalid keys and out-of-range key indices;
+     a tail block), with invalid keys and out-of-range key indices; K1
+     also at the batch's 992 leaves and at 1, 5 and 33 messages of 1-9
+     blocks, against hashlib too; K2's wave at N = 2 ... 65,536 under
+     five offset patterns, each one k_merkle_wave launch after one
+     k_merkle_level launch per level wider than its block;
   2. path A, slice 1, end to end: 1,000 signed NYM requests
      (Max3PCBatchSize) from 1,000 DIDs, 8 of them corrupted,
      authenticated through make_verifier("cuda"); the accepted requests'
      txns staged, rooted and committed on a domain ledger pre-filled to
      100,003 txns; then one catchup-scale append_batch of 65,536 txns at
      default thresholds. Roots must equal a hashlib ledger's fed the same
-     txns, proofs must verify;
+     txns, proofs must verify; each batch must take 2 K1 and 2
+     k_merkle_wave launches and no k_merkle_level launch, the path 3, 3
+     and 6;
   3. path B, the sharded crypto plane (slice 2): the same 1,000 requests
      through make_verifier("cuda-sharded") by the byte dispatch and by the
      limb dispatch (cold, then warm key cache); ShardedCryptoPlane over a
@@ -29,14 +35,26 @@ drives the port's paths on the card:
   5. times: per kernel, the median of CUDA-event-timed launches after
      warm-up, its plain version's time, and its bound on this card (K3-K6,
      one quad of four threads per item, at 32, 64 and 128 threads per
-     block, each result held to the default's); the inversion's share of
-     K4; the plane's steps and the sharded batches.
+     block, each result held to the default's); for the SHA-256 kernels
+     also the device time that torch.profiler traces and the chain floor
+     (the device time of one message alone; for K2 and K7 one level's
+     device time plus, per further level, the slope of device time over
+     waves of 1-5 levels); a wave as one k_merkle_level launch per level;
+     the inversion's share of K4; the plane's steps and the sharded
+     batches.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails if a kernel of that path was never launched.
 Prints JSON lines (kernels, paths, device) and, last, one JSON object
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Imports nothing of JAX.
+
+    python3 chip_smoke.py --sha-device-times
+
+only prints the device time of the SHA-256 kernels of the package beside
+the script (K1, K2's wave and level, K7) at the batch's shapes, through
+wrappers every version of the port has: a copy of the script in another
+checkout times that checkout's kernels, so two trees compare in one call.
 """
 from __future__ import annotations
 
@@ -93,9 +111,10 @@ def _cuobjdump() -> str:
 
 def sass_profile(lib_path: str, kernel: str) -> dict:
     """Instruction counts of one __global__ function of a built library,
-    per pipe ("alu", "fma", "all"), split into one pass of its loop body
-    ("body", empty when it has no loop) and everything else ("rest").
-    Raises unless the function has at most one loop."""
+    per pipe ("alu", "fma", "all"), split into one pass of its outermost
+    loop's body, inner loops counted once ("body", empty when it has no
+    loop), and everything else ("rest"); "loops" is the number of loops.
+    Raises unless every loop lies inside one outermost loop."""
     out = subprocess.run([_cuobjdump(), "-sass", lib_path], check=True,
                          capture_output=True, text=True, timeout=120).stdout
     insns, name = [], None
@@ -118,11 +137,14 @@ def sass_profile(lib_path: str, kernel: str) -> dict:
             if op != "NOP" and target(op, args) != a]
     loops = [(target(op, args), a) for a, op, args in real
              if target(op, args) is not None and target(op, args) < a]
-    if len(loops) > 1:
-        raise RuntimeError(f"{kernel}: {len(loops)} loops in its SASS")
-    lo, hi = loops[0] if loops else (1, 0)
+    lo, hi = (min(a for a, _ in loops), max(b for _, b in loops)) \
+        if loops else (1, 0)
+    if loops and (lo, hi) not in loops:
+        raise RuntimeError(f"{kernel}: {len(loops)} loops in its SASS, "
+                           f"not nested in one")
     prof = {"body": {"alu": 0, "fma": 0, "all": 0},
-            "rest": {"alu": 0, "fma": 0, "all": 0}, "opcodes": {}}
+            "rest": {"alu": 0, "fma": 0, "all": 0}, "opcodes": {},
+            "loops": len(loops)}
     for a, op, _ in real:
         base = op.split(".")[0]
         part = prof["body" if lo <= a <= hi else "rest"]
@@ -135,6 +157,73 @@ def sass_profile(lib_path: str, kernel: str) -> dict:
     prof["opcodes"] = dict(sorted(prof["opcodes"].items(),
                                   key=lambda kv: -kv[1])[:12])
     return prof
+
+
+def device_ms(fn, reps: int = 20, tries: int = 3):
+    """Device time of one call of fn from what torch.profiler traces over
+    reps calls (after one warm call): per kernel name, the mean time of
+    its launches times its launches per call, summed, so that an event
+    the trace drops does not bias the sum low; a trace with no kernel is
+    taken again, up to tries times. "not measured: ..." where the
+    profiler cannot trace the card."""
+    import torch
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            by_name: dict[str, list[float]] = {}
+            for ev in prof.events():
+                if ev.device_type == DeviceType.CUDA and \
+                        not ev.name.startswith(("Memcpy", "Memset")):
+                    by_name.setdefault(ev.name, []).append(
+                        ev.time_range.elapsed_us())
+            if by_name:
+                return sum(statistics.fmean(us) * max(1, round(len(us) / reps))
+                           for us in by_name.values()) / 1e3
+    except (ImportError, RuntimeError) as exc:
+        return f"not measured: {type(exc).__name__}: {exc}"
+    return "not measured: the profiler traced no kernel"
+
+
+def sha_device_times() -> int:
+    """The --sha-device-times mode (module docstring): two passes of each
+    kernel's device time, ms per call, on inputs made from a seed."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import numpy as np
+
+    from plenum_tpu_torch.ops import sha256 as sha
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+
+    def words(n):
+        return torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, 8),
+                                             dtype=np.int64).astype(np.int32)).to(dev)
+    msgs = sha.to_tensor(np.stack([sha.pad_to_words(rng.bytes(340))
+                                   for _ in range(992)]), dev)   # 6 blocks
+    wave0, pairs, bounds, leaves = words(1024), words(1024), words(10), \
+        words(65536)
+    offs = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0, 1, 0], dtype=torch.int32,
+                        device=dev)
+    cases = {"k1_992_msgs_6_blocks": lambda: sha.sha256_words(msgs),
+             "k2_wave_1024": lambda: sha.merkle_wave(wave0, bounds, offs),
+             "k2_level_1024_pairs": lambda: sha.hash_interior(wave0, pairs),
+             "k7_1024": lambda: sha.merkle_reduce_pow2(wave0),
+             "k7_65536": lambda: sha.merkle_reduce_pow2(leaves)}
+    times = {k: [device_ms(fn) for _ in range(2)] for k, fn in cases.items()}
+    print(json.dumps({"sha_device_ms": times, "tree": root,
+                      "gpu": _smi("name,power.limit")}))
+    return 0
 
 
 def main() -> int:
@@ -260,20 +349,60 @@ def main() -> int:
         if sha.digests_to_bytes(got) != [hashlib.sha256(b"\x00" + m).digest()
                                          for m in group]:
             raise AssertionError("sha256_words disagrees with hashlib")
-    # K2: 1,024 pairs, and merkle_wave at N = 1,024 under several offs
+
+    def k1_check(msgs: list, what: str) -> None:
+        """One K1 launch over msgs (one block count), bit for bit against
+        the plain version and hashlib."""
+        w = sha.to_tensor(np.stack([sha.pad_to_words(m) for m in msgs]), dev)
+        before = ops.LAUNCHES["sha256_words"]
+        got = sha.sha256_words(w)
+        if ops.LAUNCHES["sha256_words"] != before + 1:
+            raise AssertionError(f"sha256_words {what}: not one launch")
+        bit_equal("sha256_words", got, sha.sha256_words_torch(w))
+        if sha.digests_to_bytes(got) != [hashlib.sha256(m).digest()
+                                         for m in msgs]:
+            raise AssertionError(f"sha256_words {what} disagrees with hashlib")
+
+    # K1 at the batch's 992 leaves (the accepted requests' txns), and at
+    # 1, 5 and 33 messages (a lone group, a partial warp, a tail block) of
+    # 1-9 blocks (9: more than a group of 8 lanes expands in one turn)
+    k1_check([b"\x00" + txn_to_leaf(new_txn(NYM, dict(r.operation), request=r))
+              for r, ok in zip(reqs, expect) if ok], "at the batch's leaves")
+    for n_e in (1, 5, 33):
+        for nb in range(1, 10):
+            lo, hi = max(64 * (nb - 1) - 8, 0), 64 * nb - 9
+            k1_check([rng.bytes(int(rng.integers(lo, hi + 1)))
+                      for _ in range(n_e)], f"at {n_e} x {nb} blocks")
+
+    # K2: k_merkle_level on 1,024 pairs, and the wave at N = 2 ... 65,536
+    # under five offset patterns: one k_merkle_wave launch each, after one
+    # k_merkle_level launch per level wider than its block
     def rand_words(n):
         return torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, 8),
                                              dtype=np.int64).astype(np.int32)).to(dev)
     left, right = rand_words(1024), rand_words(1024)
     bit_equal("sha256_interior", sha.hash_interior(left, right),
               sha.hash_interior_torch(left, right))
-    bounds = rand_words(10)
-    for pattern in ([0] * 10, [1] * 10, [0, 1] * 5, [1, 0] * 5,
-                    rng.integers(0, 2, 10).tolist()):
-        offs = torch.tensor(pattern, dtype=torch.int32, device=dev)
-        for got, want in zip(sha.merkle_wave(left, bounds, offs),
-                             sha.merkle_wave_torch(left, bounds, offs)):
-            bit_equal("sha256_interior", got, want)
+    bounds16 = rand_words(16)
+    for n_w in (2, 4, 32, 512, 1024, 2048, 65536):
+        depth = n_w.bit_length() - 1
+        new_w = left if n_w == 1024 else rand_words(n_w)
+        for pattern in ([0] * depth, [1] * depth, ([0, 1] * depth)[:depth],
+                        ([1, 0] * depth)[:depth],
+                        rng.integers(0, 2, depth).tolist()):
+            offs = torch.tensor(pattern, dtype=torch.int32, device=dev)
+            before = dict(ops.LAUNCHES)
+            got = sha.merkle_wave(new_w, bounds16[:depth], offs)
+            if (ops.LAUNCHES["merkle_wave"] - before["merkle_wave"],
+                    ops.LAUNCHES["sha256_interior"]
+                    - before["sha256_interior"]) != (1, max(0, depth - 10)):
+                raise AssertionError(f"merkle_wave at N = {n_w}: launches "
+                                     f"off the plan {sha.wave_plan(n_w)}")
+            want = sha.merkle_wave_torch(new_w, bounds16[:depth], offs)
+            if len(got) != len(want):
+                raise AssertionError(f"merkle_wave at N = {n_w}: levels")
+            for g, w_ in zip(got, want):
+                bit_equal("merkle_wave", g, w_)
     # K3: 1,024 keys, including y >= p, off-curve and (x = 0, sign = 1)
     key_signers = [signer(10_000 + i) for i in range(1016)]
     P = ed.P
@@ -494,8 +623,16 @@ def main() -> int:
         raise AssertionError("65,536-append root differs from the hashlib "
                              "ledger's")
     require_launched("slice", main_counts,
-                     ("sha256_words", "sha256_interior", "ed25519_decompress",
-                      "ed25519_verify"))
+                     ("sha256_words", "merkle_wave", "sha256_interior",
+                      "ed25519_decompress", "ed25519_verify"))
+    # each batch wave (staged, then committed) is one k_merkle_wave launch;
+    # the 65,536-txn wave is 6 k_merkle_level launches and one k_merkle_wave
+    sha_counts = {k_: (batch_counts[k_], main_counts[k_])
+                  for k_ in ("sha256_words", "merkle_wave", "sha256_interior")}
+    if sha_counts != {"sha256_words": (2, 3), "merkle_wave": (2, 3),
+                      "sha256_interior": (0, 6)}:
+        raise AssertionError(f"SHA-256 launches (per batch, on the path) "
+                             f"off the plan: {sha_counts}")
     print(json.dumps({"slice": {
         "requests": n_req, "accepted": int(verdicts.sum()),
         "ledger_size_before": n_pre, "ledger_size_after": catchup.size,
@@ -639,11 +776,14 @@ def main() -> int:
     per_pipe_per_s = n_sm * 64 * sm_mhz * 1e6     # ALU or FMA pipe, all SMs
     issue_per_s = 2 * per_pipe_per_s              # 4 x 32 lanes per clk/SM
     hbm_bytes_per_s = 3.35e12
-    # SHA-256: thread-instructions per pipe, counted from the SASS
+    # SHA-256: thread-instructions per pipe, counted from the SASS. K1 per
+    # 64-byte block: one pass of its turn loop (the group's load, one
+    # lane's expansion of one block and, counted once, the round loop's
+    # body); K2 and K7 per parent: k_merkle_level, which has no loop
     sass_k1 = sass_profile(lib_paths["sha256"], "k_sha256_words")
     sass_k2 = sass_profile(lib_paths["sha256"], "k_merkle_level")
     if sass_k2["body"]["all"] or not sass_k1["body"]["all"]:
-        raise AssertionError("SHA-256 SASS: want one loop (the blocks) in "
+        raise AssertionError("SHA-256 SASS: want a loop (the blocks) in "
                              "k_sha256_words and none in k_merkle_level")
     # Ed25519: only the 32x32->64 multiplies (IMAD.WIDE, two FMA-pipe
     # slots each) are counted; adds and carries are left out, so the
@@ -715,12 +855,20 @@ def main() -> int:
                op_time(k1_insns)),
          {"messages": len(batch_leaves), "blocks": n_blocks_k1,
           "launches_per_call": len(k1_inputs)}),
-        ("K2", "sha256_interior", "plenum_tpu_torch/csrc/sha256.cu",
+        ("K2", "merkle_wave", "plenum_tpu_torch/csrc/sha256.cu",
          "plenum_tpu/ops/sha256.py:142",
          lambda: sha.merkle_wave(wave0, wave_bounds, wave_offs),
          lambda: sha.merkle_wave_torch(wave0, wave_bounds, wave_offs),
          bound(1024 * 32 + 10 * 36 + 1023 * 32, op_time(k2_insns)),
-         {"wave": 1024, "parents": 1023, "launches_per_call": 10}),
+         {"wave": 1024, "parents": 1023, "levels": 10,
+          "launches_per_call": 1}),
+        ("K2L", "sha256_interior", "plenum_tpu_torch/csrc/sha256.cu",
+         "plenum_tpu/ops/sha256.py:123",
+         lambda: sha.hash_interior(left, right),
+         lambda: sha.hash_interior_torch(left, right),
+         bound(1024 * 64 + 1024 * 32, op_time(insns(sass_k2, [(1024, 0)]))),
+         {"pairs": 1024, "parents": 1024, "levels": 1,
+          "launches_per_call": 1}),
         ("K3", "ed25519_decompress", "plenum_tpu_torch/csrc/ed25519.cu",
          "plenum_tpu/ops/ed25519.py:521",
          lambda: ed.decompress_kernel(k_u8),
@@ -751,7 +899,8 @@ def main() -> int:
          lambda: sha.merkle_reduce_pow2(plane_leaves),
          lambda: sha.merkle_reduce_pow2_torch(plane_leaves),
          k7_bound(1024),
-         {"leaves": 1024, "parents": 1023, "launches_per_call": 2}),
+         {"leaves": 1024, "parents": 1023, "levels": 10,
+          "launches_per_call": 2}),
         ("K8", "field_chain", "plenum_tpu_torch/csrc/ed25519.cu",
          "probes/pallas_sqr_experiment.py:57",
          lambda: field_chain(chain_x, 64),
@@ -762,13 +911,44 @@ def main() -> int:
     ]
     path_counts = {"slice": main_counts, "sharded": sharded_counts,
                    "probe": probe_counts}
-    path_of = {"K1": "slice", "K2": "slice", "K3": "slice", "K4": "slice",
-               "K5": "sharded", "K6": "sharded", "K7": "sharded",
-               "K8": "probe"}
-    # one thread per item (block size fixed in csrc/sha256.cu and
-    # ed25519.cu) but for K3-K6: a quad per item, block size swept
-    fixed_geometry = {"sha256_words": 128, "sha256_interior": 128,
-                      "merkle_reduce": 256, "field_chain": 128}
+    path_of = {"K1": "slice", "K2": "slice", "K2L": "slice", "K3": "slice",
+               "K4": "slice", "K5": "sharded", "K6": "sharded",
+               "K7": "sharded", "K8": "probe"}
+    # (threads per item, per block), fixed in csrc/sha256.cu and
+    # ed25519.cu, but for K3-K6: a quad per item, block size swept
+    fixed_geometry = {"sha256_words": (8, 128), "merkle_wave": (1, 512),
+                      "sha256_interior": (1, 128), "merkle_reduce": (1, 256),
+                      "field_chain": (1, 128)}
+    # the SHA-256 kernels' chain floor: one launch plus the chain of its
+    # levels. Levels of at most 16 parents run in warp 0 alone, so a wave
+    # (or a K7 reduce) over N = 2 ... 32 costs one parent's chain more per
+    # level: floor = t(1 level) + (levels - 1) x the least-squares slope
+    # of device time over 1-5 levels, each kernel its own. K1: one message
+    # of the batch's 6 blocks alone.
+    def level_sweep(fn) -> dict:
+        return {lv: device_ms(lambda lv=lv: fn(1 << lv)) for lv in range(1, 11)}
+
+    def chain_floor(sweep: dict, levels: int):
+        pts = [(lv, t) for lv, t in sweep.items() if lv <= 5]
+        if any(isinstance(t, str) for _, t in pts):
+            return "not measured: the profiler traced no kernel"
+        slope = float(np.polyfit(*zip(*pts), 1)[0])
+        return sweep[1] + (levels - 1) * slope
+
+    wave_sweep = level_sweep(lambda n_: sha.merkle_wave(
+        left[:n_], wave_bounds[:n_.bit_length() - 1],
+        wave_offs[:n_.bit_length() - 1]))
+    reduce_sweep = level_sweep(lambda n_: sha.merkle_reduce_pow2(left[:n_]))
+    one_message = k1_inputs[0][:1].clone()
+    chain_of = {"sha256_words": lambda levels: device_ms(
+                    lambda: sha.sha256_words(one_message)),
+                "merkle_wave": lambda levels: chain_floor(wave_sweep, levels),
+                "sha256_interior": lambda levels: device_ms(
+                    lambda: sha.hash_interior(left[:1], right[:1])),
+                "merkle_reduce": lambda levels: chain_floor(reduce_sweep,
+                                                            levels)}
+    print(json.dumps({"chain_floor_sweeps_device_ms_by_levels": {
+        "merkle_wave": wave_sweep, "merkle_reduce": reduce_sweep}}))
 
     def same(a, b) -> bool:
         if isinstance(a, (tuple, list)):
@@ -790,7 +970,11 @@ def main() -> int:
                 by_block[tpb] = median_ms(fn, 20)
             ed.THREADS_PER_BLOCK = per_block
         else:
-            per_item, per_block = 1, fixed_geometry[name]
+            per_item, per_block = fixed_geometry[name]
+        sha_times = {}
+        if name in chain_of:
+            sha_times = {"device_ms": device_ms(fn), "chain_floor_ms":
+                         chain_of[name](shape.get("levels", 1))}
         kernels.append({
             "id": kid, "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -803,7 +987,9 @@ def main() -> int:
             "ms_by_threads_per_block": by_block,
             "path": path_of[kid],
             "launches_by_path": {p_: c_[name] for p_, c_ in path_counts.items()},
-            "launches_per_1000_txn_batch": batch_counts[name], "shape": shape})
+            "launches_per_1000_txn_batch": batch_counts[name], "shape": shape,
+            **sha_times})
+    by_id = {k_["id"]: k_ for k_ in kernels}
     # the inversion's share of K4: 254 squarings in lock-step on each of
     # K4's 4 x N threads, timed as K8 over 4 N columns (one thread each)
     inv_x = chain_x.repeat(1, (4 * n_sigs + 2047) // 2048)[:, :4 * n_sigs] \
@@ -811,7 +997,7 @@ def main() -> int:
     inv_ms = median_ms(lambda: field_chain(inv_x, 254), 20)
     print(json.dumps({"inversion_share": {
         "columns": 4 * n_sigs, "squarings": 254, "k8_ms": inv_ms,
-        "k4_ms": kernels[3]["ms"], "share_of_k4": inv_ms / kernels[3]["ms"]}}))
+        "k4_ms": by_id["K4"]["ms"], "share_of_k4": inv_ms / by_id["K4"]["ms"]}}))
     print(json.dumps({"bound_basis": {
         "alu_or_fma_pipe_per_s": per_pipe_per_s, "issue_per_s": issue_per_s,
         "sm_clock_mhz": sm_mhz, "clocks_max_sm": max_clock,
@@ -835,7 +1021,7 @@ def main() -> int:
         s_u8, h_u8, k_u8, idx_m, r_u8), 3, warm=1)
     print(json.dumps({"verify_kernel_bytes": {
         "signatures": n_sigs, "keys": n_keys, "ms": b1_ms, "plain_ms": b1_plain,
-        "bound_ms": kernels[2]["bound_ms"] + kernels[3]["bound_ms"]}}))
+        "bound_ms": by_id["K3"]["bound_ms"] + by_id["K4"]["bound_ms"]}}))
     # B3 as one call (K5 then K6), the reference's verify_kernel_indexed
     b3_ms = median_ms(lambda: ed.verify_kernel_indexed(sd5, hd5, aq5, ix5,
                                                        ry5, rs5), 20)
@@ -844,17 +1030,23 @@ def main() -> int:
     print(json.dumps({"verify_kernel_indexed": {
         "signatures": n_sigs6, "key_rows": n_rows5, "ms": b3_ms,
         "plain_ms": b3_plain,
-        "bound_ms": kernels[4]["bound_ms"] + kernels[5]["bound_ms"]}}))
-    # B5: hash_interior, K2 on 1,024 interleaved pairs (one launch)
-    b5_ms = median_ms(lambda: sha.hash_interior(left, right), 20)
-    b5_plain = median_ms(lambda: sha.hash_interior_torch(left, right), 3,
-                         warm=1)
-    b5_bound = bound(1024 * 64 + 1024 * 32,
-                     op_time(insns(sass_k2, [(1024, 0)])))
-    print(json.dumps({"hash_interior": {
-        "pairs": 1024, "ms": b5_ms, "plain_ms": b5_plain,
-        "bound_ms": b5_bound[0], "bound_by": b5_bound[1],
-        "launches_per_call": 1}}))
+        "bound_ms": by_id["K5"]["bound_ms"] + by_id["K6"]["bound_ms"]}}))
+    # the wave as one k_merkle_level launch per level (the wave before
+    # k_merkle_wave), beside k_merkle_wave
+    def by_levels():
+        flat = torch.empty((1023, 8), dtype=torch.int32, device=dev)
+        rows = sha.wave_rows(1024)
+        for level, (a, b) in enumerate(rows):
+            sha._merkle_level(
+                wave0 if level == 0 else flat[rows[level - 1][0]:a],
+                wave_bounds[level], wave_offs[level:], flat[a:b])
+        return flat
+    if not torch.equal(by_levels(),
+                       sha.merkle_wave_flat(wave0, wave_bounds, wave_offs)):
+        raise AssertionError("the wave by levels and by k_merkle_wave differ")
+    print(json.dumps({"merkle_wave_by_levels": {
+        "wave": 1024, "launches_per_call": 10,
+        "ms": median_ms(by_levels, 20), "device_ms": device_ms(by_levels)}}))
     # K7 at 65,536 leaves (two launches: 128 blocks, then one)
     leaves_64k = rand_words(65536)
     k7_64k = k7_bound(65536)
@@ -947,4 +1139,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sha_device_times() if sys.argv[1:] == ["--sha-device-times"]
+             else main())

@@ -2,9 +2,13 @@
 //
 // Replaces (JAX package, jitted jax.numpy programs):
 //   K1 sha256_words     <- plenum_tpu/ops/sha256.py:87  sha256_words
-//   K2 merkle_level     <- plenum_tpu/ops/sha256.py:142 merkle_wave (one
-//                          launch per level) and :123 hash_interior (one
-//                          launch with the pairs interleaved, offset 0)
+//   K2 merkle_wave      <- plenum_tpu/ops/sha256.py:142 merkle_wave: every
+//                          level of a wave of up to 1,024 leaves in one
+//                          launch of one block (k_merkle_wave); a wider
+//                          wave's widest levels one launch each
+//                          (k_merkle_level), then one k_merkle_wave
+//      merkle_level     <- :123 hash_interior (k_merkle_level, one launch
+//                          with the pairs interleaved, offset 0)
 //   K7 merkle_reduce    <- plenum_tpu/ops/sha256.py:129 merkle_reduce_pow2
 //                          (every level of a 512-leaf subtree in one block)
 //
@@ -15,37 +19,44 @@
 // in: far more work per byte than the card's memory rate asks for, so the
 // arithmetic, not the memory, is the floor. chip_smoke.py counts the
 // instructions per pipe from this library's SASS for the bound it prints.
+// At the ledger's sizes no kernel comes near it: a 1,000-txn batch fills
+// a few SMs, so what bounds them in practice is each message's chain of
+// 64 dependent rounds per block.
 //
-// Design: one thread per message (K1) or per parent (K2). The TPU program
-// advanced the whole batch in lockstep across vector lanes with the
-// schedule in a [N, 64] array; here each thread keeps the eight working
-// variables and a 16-word schedule ring in registers, the 64 rounds fully
-// unrolled so every round constant is an immediate from constant memory
-// and every rotate a funnel shift. Threads are independent, so a batch of
-// N needs no synchronisation at all. K2 packs 0x01 || left || right into
-// its two blocks inside the thread (the 1-byte prefix shifts every word by
-// 8 bits) and reads the level's boundary node and 0/1 offset flag from
-// device memory, so the host launches every level of a wave back to back
-// with no sync in between.
+// K1 runs a group of kGroup lanes per message, in three steps per turn of
+// up to kGroup blocks: the group copies the turn's words into shared
+// memory in 16-byte chunks (lane l takes chunks l, l + kGroup, ...: one
+// coalesced load per message instead of one strided load per block);
+// lane b expands block b's whole schedule and stores W[t] + K[t] in shared
+// memory (the schedule depends on the words only, never on the state);
+// lane 0 then runs the rounds of every block of the turn, each round one
+// shared-memory load besides the state update. The round chain loses the
+// schedule's two sigmas and three adds, and a batch of N messages runs
+// N kGroup / 32 warps instead of N / 32.
 //
-// K7 reduces a complete power-of-two subtree to its root. Its levels
-// depend on each other, so across the grid they would need one launch
-// each (K2's way); inside a block they need only a barrier. One block of
-// 256 threads takes 512 leaves: level 0 reads the leaves from device
-// memory, every later level ping-pongs between two 256-digest buffers in
-// shared memory (16 KB) with __syncthreads() between levels, and thread 0
-// writes the block's root. A second launch of the same kernel reduces the
-// block roots when N > 512, so N <= 262,144 takes at most two launches
-// (against log2 N for K2). All 256 threads hash at level 0, which holds
-// half of a block's 511 parents; the active count halves at every later
-// level, so those levels run on ever fewer warps.
+// K2's wave and K7 keep a subtree's levels in one block: level 0 reads
+// its children from device memory, every later level ping-pongs between
+// two buffers of parents in shared memory, a barrier between levels
+// (__syncthreads() while a level spans warps, __syncwarp() once it fits
+// warp 0). k_merkle_wave (kWaveThreads threads) takes a wave whose widest
+// level has at most kWaveThreads parents: a 1,024-leaf wave, the ledger's
+// 1,000-txn batch, is one launch with no trip through device memory
+// between levels; each level's parents are also stored to one flat
+// output at that level's row offset. The wave's pairing is
+// merkle_parent_one's: level l's boundary node and 0/1 offset flag are
+// read on the device, and since the whole level lives in one block,
+// thread 0 pairs the boundary with the level's first node. K7 (256
+// threads) reduces each 512-leaf block of a power-of-two subtree to its
+// root, and launches again over the block roots when N > 512.
 //
 // Plain C interface (bound with ctypes): each launcher returns
 // cudaGetLastError() right after its launch.
 //
-// The per-item functions are device functions under nvcc and plain inline
-// functions otherwise, so the same code also compiles as host C++ for a
-// differential check without a GPU.
+// The per-item functions and the level loop are device functions under
+// nvcc and plain inline functions otherwise, so the same code also
+// compiles as host C++ for a differential check without a GPU; the level
+// loop's barriers are a parameter (BlockSync on the card, HostBlock, one
+// std::barrier over the block's host threads, on the host).
 #include <cstddef>
 #include <cstdint>
 
@@ -79,66 +90,92 @@ HD void sha256_init(uint32_t st[8]) {
   st[6] = 0x1f83d9abu; st[7] = 0x5be0cd19u;
 }
 
-// One compression; blk holds 16 big-endian words and is used as the
-// schedule ring (overwritten).
-HD void sha256_compress(uint32_t st[8], uint32_t w[16]) {
-  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll
-  for (int t = 0; t < 64; ++t) {
-    uint32_t wt;
-    if (t < 16) {
-      wt = w[t];
-    } else {
-      uint32_t x15 = w[(t - 15) & 15], x2 = w[(t - 2) & 15];
-      uint32_t s0 = rotr32(x15, 7) ^ rotr32(x15, 18) ^ (x15 >> 3);
-      uint32_t s1 = rotr32(x2, 17) ^ rotr32(x2, 19) ^ (x2 >> 10);
-      wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
-      w[t & 15] = wt;
-    }
-    uint32_t S1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
-    uint32_t ch = (e & f) ^ (~e & g);
-    uint32_t t1 = h + S1 + ch + SHA_K[t] + wt;
-    uint32_t S0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
-    uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-    h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + S0 + maj;
-  }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+// One round on the working variables v = (a, ..., h); kw = K[t] + W[t].
+HD void sha256_round(uint32_t v[8], uint32_t kw) {
+  uint32_t e = v[4], a = v[0];
+  uint32_t S1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
+  uint32_t ch = (e & v[5]) ^ (~e & v[6]);
+  uint32_t t1 = v[7] + S1 + ch + kw;
+  uint32_t S0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
+  uint32_t maj = (a & v[1]) ^ (a & v[2]) ^ (v[1] & v[2]);
+  v[7] = v[6]; v[6] = v[5]; v[5] = e; v[4] = v[3] + t1;
+  v[3] = v[2]; v[2] = v[1]; v[1] = a; v[0] = t1 + S0 + maj;
 }
 
-// SHA-256 of one pre-padded message of nblocks 64-byte blocks.
-HD void sha256_words_one(const uint32_t* msg, int nblocks, uint32_t* out) {
-  uint32_t st[8];
-  sha256_init(st);
-  for (int b = 0; b < nblocks; ++b) {
-    uint32_t w[16];
+// Schedule word t >= 16 from the 16-word ring w, which it updates.
+HD uint32_t sha256_next_word(uint32_t w[16], int t) {
+  uint32_t x15 = w[(t - 15) & 15], x2 = w[(t - 2) & 15];
+  uint32_t s0 = rotr32(x15, 7) ^ rotr32(x15, 18) ^ (x15 >> 3);
+  uint32_t s1 = rotr32(x2, 17) ^ rotr32(x2, 19) ^ (x2 >> 10);
+  uint32_t wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
+  w[t & 15] = wt;
+  return wt;
+}
+
+// One compression, the schedule run beside the rounds; w holds 16
+// big-endian words and is used as the schedule ring (overwritten).
+HD void sha256_compress(uint32_t st[8], uint32_t w[16]) {
+  uint32_t v[8];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) w[i] = msg[16 * b + i];
-    sha256_compress(st, w);
+  for (int i = 0; i < 8; ++i) v[i] = st[i];
+#pragma unroll
+  for (int t = 0; t < 64; ++t)
+    sha256_round(v, SHA_K[t] + (t < 16 ? w[t] : sha256_next_word(w, t)));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[i] += v[i];
+}
+
+// K1's expansion: block blk's 64 schedule words, stored as W[t] + K[t] at
+// wk[t * stride].
+HD void sha256_schedule(const uint32_t* blk, uint32_t* wk, int stride) {
+  uint32_t w[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) w[i] = blk[i];
+#pragma unroll
+  for (int t = 0; t < 64; ++t)
+    wk[t * stride] = SHA_K[t] + (t < 16 ? w[t] : sha256_next_word(w, t));
+}
+
+// K1's rounds: one compression from an expanded schedule (W[t] + K[t] at
+// wk[t * stride]). The same integers as sha256_compress.
+HD void sha256_rounds(uint32_t st[8], const uint32_t* wk, int stride) {
+  uint32_t v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = st[i];
+#pragma unroll
+  for (int t = 0; t < 64; ++t) sha256_round(v, wk[t * stride]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[i] += v[i];
+}
+
+// Block `half` (0 or 1) of the RFC 6962 interior message 0x01 || l || r
+// (65 bytes, padded to 2 blocks): the 1-byte prefix shifts every word by
+// 8 bits.
+HD void interior_block(const uint32_t* l, const uint32_t* r, int half,
+                       uint32_t w[16]) {
+  if (half == 0) {
+    w[0] = 0x01000000u | (l[0] >> 8);
+#pragma unroll
+    for (int i = 1; i < 8; ++i) w[i] = (l[i - 1] << 24) | (l[i] >> 8);
+    w[8] = (l[7] << 24) | (r[0] >> 8);
+#pragma unroll
+    for (int i = 9; i < 16; ++i) w[i] = (r[i - 9] << 24) | (r[i - 8] >> 8);
+  } else {
+    w[0] = (r[7] << 24) | 0x00800000u;
+#pragma unroll
+    for (int i = 1; i < 15; ++i) w[i] = 0;
+    w[15] = 65 * 8;
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = st[i];
 }
 
 // RFC 6962 interior node: SHA256(0x01 || l || r), 65 bytes = 2 blocks.
 HD void sha256_interior_one(const uint32_t* l, const uint32_t* r,
                             uint32_t* out) {
-  uint32_t cat[16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) { cat[i] = l[i]; cat[8 + i] = r[i]; }
-  uint32_t w[16];
-  w[0] = 0x01000000u | (cat[0] >> 8);
-#pragma unroll
-  for (int i = 1; i < 16; ++i) w[i] = (cat[i - 1] << 24) | (cat[i] >> 8);
-  uint32_t st[8];
+  uint32_t st[8], w[16];
   sha256_init(st);
+  interior_block(l, r, 0, w);
   sha256_compress(st, w);
-  w[0] = (cat[15] << 24) | 0x00800000u;
-#pragma unroll
-  for (int i = 1; i < 15; ++i) w[i] = 0;
-  w[15] = 65 * 8;
+  interior_block(l, r, 1, w);
   sha256_compress(st, w);
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = st[i];
@@ -153,16 +190,97 @@ HD void merkle_parent_one(const uint32_t* cur, const uint32_t* bound, int off,
   sha256_interior_one(left, cur + 8 * kr, out);
 }
 
+// The levels of a subtree in one block of kT threads, thread t's share.
+// Level 0 pairs `width` children (a power of two, at most 2 kT) from
+// `in`; level l > 0 pairs the previous level's parents from buf, which
+// holds two buffers of kT digests (rows [0, kT) and [kT, 2 kT)). Level l
+// uses bound bounds + 8 l and offset offs[l] & 1 where they are given,
+// else offset 0 (K7). Where `out` is given, level l's width / 2^(l+1)
+// parents are also stored there at row width - width / 2^l. Returns the
+// buffer (0 or 1) that holds the last level's parent. `sync` is the
+// block's barrier: block() for all kT threads, warp() for warp 0's.
+template <int kT, class Sync>
+HD int subtree_levels(const Sync& sync, int t, const uint32_t* in, int width,
+                      const uint32_t* bounds, const int32_t* offs,
+                      uint32_t* out, uint32_t (*buf)[8]) {
+  const uint32_t* cur = in;
+  int dst = 0;
+  for (int w = width, level = 0; w > 1; w >>= 1, ++level) {
+    if (level > 0) {           // w: the parents the previous level wrote
+      if (w > 32) sync.block();
+      else sync.warp();
+      cur = buf[dst * kT];
+      dst ^= 1;
+    }
+    if (t < w / 2) {
+      uint32_t p[8];
+      merkle_parent_one(cur, bounds ? bounds + 8 * level : nullptr,
+                        offs ? offs[level] & 1 : 0, t, p);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) buf[dst * kT + t][i] = p[i];
+      if (out) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) out[8 * (width - w + t) + i] = p[i];
+      }
+    }
+  }
+  return dst;
+}
+
 #ifdef __CUDACC__
 
-static constexpr int kThreads = 128;
+struct BlockSync {
+  __device__ void block() const { __syncthreads(); }
+  __device__ void warp() const { __syncwarp(); }
+};
 
-__global__ void k_sha256_words(const uint32_t* __restrict__ msgs,
-                               uint32_t* __restrict__ out, int n, int nblocks) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  sha256_words_one(msgs + (size_t)i * 16 * nblocks, nblocks, out + (size_t)i * 8);
+// K1: kGroup lanes per message, kWordsThreads / kGroup messages per block.
+static constexpr int kWordsThreads = 128;
+static constexpr int kGroup = 8;
+
+struct WordsShared {
+  // one turn's words of each message, 16-byte chunks
+  uint4 words[kWordsThreads / kGroup][4 * kGroup];
+  // W[t] + K[t] of block b of the turn at word t kGroup + b; kGroup words
+  // of padding per message put the groups of one warp on other banks
+  uint32_t wk[kWordsThreads / kGroup][64 * kGroup + kGroup];
+};
+
+__global__ void __launch_bounds__(kWordsThreads)
+k_sha256_words(const uint32_t* __restrict__ msgs, uint32_t* __restrict__ out,
+               int n, int nblocks) {
+  __shared__ WordsShared sh;
+  int lane = threadIdx.x % kGroup, slot = threadIdx.x / kGroup;
+  int i = blockIdx.x * (kWordsThreads / kGroup) + slot;
+  bool live = i < n;          // no early exit: the warp meets at __syncwarp
+  const uint4* msg = reinterpret_cast<const uint4*>(msgs) + (size_t)i * 4 * nblocks;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(sh.words[slot]);
+  uint32_t* wk = sh.wk[slot];
+  uint32_t st[8];
+  sha256_init(st);
+  for (int b0 = 0; b0 < nblocks; b0 += kGroup) {
+    int nb = min(kGroup, nblocks - b0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int c = lane + k * kGroup;
+      if (live && c < 4 * nb) sh.words[slot][c] = msg[4 * b0 + c];
+    }
+    __syncwarp();
+    if (live && lane < nb)
+      sha256_schedule(words + 16 * lane, wk + lane, kGroup);
+    __syncwarp();
+    if (live && lane == 0)
+      for (int b = 0; b < nb; ++b) sha256_rounds(st, wk + b, kGroup);
+    __syncwarp();
+  }
+  if (live && lane == 0) {
+    uint4* o = reinterpret_cast<uint4*>(out) + 2 * (size_t)i;
+    o[0] = make_uint4(st[0], st[1], st[2], st[3]);
+    o[1] = make_uint4(st[4], st[5], st[6], st[7]);
+  }
 }
+
+static constexpr int kThreads = 128;
 
 __global__ void k_merkle_level(const uint32_t* __restrict__ cur,
                                const uint32_t* __restrict__ bound,
@@ -173,6 +291,21 @@ __global__ void k_merkle_level(const uint32_t* __restrict__ cur,
   merkle_parent_one(cur, bound, off[0] & 1, j, out + (size_t)j * 8);
 }
 
+// K2's wave: every level of a wave of n <= 2 kWaveThreads children in one
+// block, from level level0 of the wave on (bounds and offs are the wave's
+// whole arrays); out points at level level0's rows of the flat output.
+static constexpr int kWaveThreads = 512;
+
+__global__ void __launch_bounds__(kWaveThreads)
+k_merkle_wave(const uint32_t* __restrict__ cur,
+              const uint32_t* __restrict__ bounds,
+              const int32_t* __restrict__ offs, uint32_t* __restrict__ out,
+              int n, int level0) {
+  __shared__ uint32_t buf[2 * kWaveThreads][8];
+  subtree_levels<kWaveThreads>(BlockSync{}, threadIdx.x, cur, n,
+                               bounds + 8 * level0, offs + level0, out, buf);
+}
+
 // K7: block b reduces leaves [512 b, 512 b + w), w = min(n, 512), to
 // out[b]. n is a power of two, so w is too.
 static constexpr int kReduceThreads = 256;
@@ -181,29 +314,23 @@ static constexpr int kReduceLeaves = 2 * kReduceThreads;
 __global__ void __launch_bounds__(kReduceThreads)
 k_merkle_reduce(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                 int n) {
-  __shared__ uint32_t buf[2][kReduceThreads][8];
+  __shared__ uint32_t buf[2 * kReduceThreads][8];
   int t = threadIdx.x;
   int width = min(n - (int)blockIdx.x * kReduceLeaves, kReduceLeaves);
-  const uint32_t* leaves = in + (size_t)blockIdx.x * kReduceLeaves * 8;
-  if (t < width / 2)
-    sha256_interior_one(leaves + 16 * t, leaves + 16 * t + 8, buf[0][t]);
-  __syncthreads();
-  int src = 0;
-  for (int w = width / 2; w > 1; w >>= 1) {
-    if (t < w / 2)
-      sha256_interior_one(buf[src][2 * t], buf[src][2 * t + 1],
-                          buf[src ^ 1][t]);
-    __syncthreads();
-    src ^= 1;
-  }
-  if (t < 8) out[(size_t)blockIdx.x * 8 + t] = buf[src][0][t];
+  int src = subtree_levels<kReduceThreads>(
+      BlockSync{}, t, in + (size_t)blockIdx.x * kReduceLeaves * 8, width,
+      nullptr, nullptr, nullptr, buf);
+  __syncwarp();               // the root's writer, thread 0, is in warp 0
+  if (t < 8) out[(size_t)blockIdx.x * 8 + t] = buf[src * kReduceThreads][t];
 }
 
 static int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 extern "C" int sha256_words_launch(const void* msgs, void* out, int n,
                                    int nblocks, void* stream) {
-  k_sha256_words<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  constexpr int per_block = kWordsThreads / kGroup;
+  k_sha256_words<<<(n + per_block - 1) / per_block, kWordsThreads, 0,
+                   (cudaStream_t)stream>>>(
       (const uint32_t*)msgs, (uint32_t*)out, n, nblocks);
   return (int)cudaGetLastError();
 }
@@ -217,6 +344,19 @@ extern "C" int merkle_level_launch(const void* cur, const void* bound,
   return (int)cudaGetLastError();
 }
 
+// n: the wave's width from level level0 on, a power of two in
+// [2, 2 kWaveThreads]; anything else is refused.
+extern "C" int merkle_wave_launch(const void* cur, const void* bounds,
+                                  const void* offs, void* out, int n,
+                                  int level0, void* stream) {
+  if (n < 2 || n > 2 * kWaveThreads || (n & (n - 1)) || level0 < 0)
+    return (int)cudaErrorInvalidValue;
+  k_merkle_wave<<<1, kWaveThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)cur, (const uint32_t*)bounds, (const int32_t*)offs,
+      (uint32_t*)out, n, level0);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int merkle_reduce_launch(const void* in, void* out, int n,
                                     void* stream) {
   int blocks = (n + kReduceLeaves - 1) / kReduceLeaves;
@@ -225,4 +365,13 @@ extern "C" int merkle_reduce_launch(const void* in, void* out, int n,
   return (int)cudaGetLastError();
 }
 
+#else
+#include <barrier>
+// The level loop's barrier on the host: one std::barrier over all of the
+// block's host threads stands in for both __syncthreads() and __syncwarp().
+struct HostBlock {
+  std::barrier<>* all;
+  void block() const { all->arrive_and_wait(); }
+  void warp() const { all->arrive_and_wait(); }
+};
 #endif  // __CUDACC__

@@ -20,8 +20,8 @@ import torch
 
 from plenum_tpu_torch import ops
 from plenum_tpu_torch.ops.sha256 import (bytes_to_digests, digests_to_bytes,
-                                         hash_interior, merkle_wave,
-                                         sha256_batch, to_tensor)
+                                         hash_interior, merkle_wave_flat,
+                                         sha256_batch, to_tensor, wave_rows)
 
 
 class TreeHasher:
@@ -45,8 +45,8 @@ class TreeHasher:
 
 
 def fused_wave_levels(new_hashes, bounds, offs, counts, device):
-    """An append wave's interior levels through ops/sha256.merkle_wave —
-    the shared implementation behind `hash_wave_levels`.
+    """An append wave's interior levels through ops/sha256.merkle_wave_flat
+    — the shared implementation behind `hash_wave_levels`.
 
     new_hashes: the wave's new level-0 digests (32-byte each).
     bounds[l]:  the old left-boundary digest level l pairs with, or None.
@@ -55,29 +55,31 @@ def fused_wave_levels(new_hashes, bounds, offs, counts, device):
 
     Returns per-level lists of parent digests for the first
     min(len(counts), log2(bucket)) levels; the CALLER finishes any deeper
-    (single-node spine) levels on host. All levels come back in one copy.
+    (single-node spine) levels on host. The inputs go to the device in one
+    copy (new0, bounds and offs packed into one int32 buffer) and the
+    levels come back in one copy (a prefix of the flat output).
     """
     n = len(new_hashes)
     bucket = _pow2_at_least(max(2, n))
     depth = bucket.bit_length() - 1          # log2(bucket) levels
-    new0 = np.zeros((bucket, 8), dtype=np.uint32)
+    packed = np.zeros(8 * bucket + 9 * depth, dtype=np.uint32)
+    new0 = packed[:8 * bucket].reshape(bucket, 8)
+    bnd = packed[8 * bucket:8 * (bucket + depth)].reshape(depth, 8)
+    off = packed[8 * (bucket + depth):]
     new0[:n] = bytes_to_digests(list(new_hashes))
-    bnd = np.zeros((depth, 8), dtype=np.uint32)
-    off = np.zeros(depth, dtype=np.int32)
     levels = min(depth, len(counts))
     for l in range(levels):
         if offs[l] and bounds[l] is not None:
             bnd[l] = bytes_to_digests([bounds[l]])[0]
             off[l] = 1
-    outs = merkle_wave(to_tensor(new0, device), to_tensor(bnd, device),
-                       torch.from_numpy(off).to(device))
-    flat = digests_to_bytes(torch.cat(outs[:levels]))
-    result = []
-    start = 0
-    for l in range(levels):
-        result.append(flat[start:start + counts[l]])
-        start += outs[l].shape[0]
-    return result
+    dev = to_tensor(packed, device)
+    flat = merkle_wave_flat(dev[:8 * bucket].view(bucket, 8),
+                            dev[8 * bucket:8 * (bucket + depth)].view(depth, 8),
+                            dev[8 * (bucket + depth):])
+    rows = wave_rows(bucket)[:levels]
+    got = digests_to_bytes(flat[:rows[-1][1]] if rows else flat[:0])
+    return [got[start:start + counts[l]]
+            for l, (start, _) in enumerate(rows)]
 
 
 def _pow2_at_least(n: int) -> int:

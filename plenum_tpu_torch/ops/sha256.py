@@ -9,14 +9,17 @@ no uint32 arithmetic on the CPU): messages int32[N, 16*B] of big-endian
 words of B padded 64-byte blocks, digests int32[N, 8].
 
 Each public function dispatches on where its tensors lie: CUDA tensors go
-to the kernels in csrc/sha256.cu (K1 `sha256_words`, K2 the interior
-hash per level, K7 the subtree reduce), CPU tensors to the plain PyTorch version beside it (`*_torch`),
-which computes in int64 lanes masked to 32 bits. There is no fallback:
-a kernel that cannot launch raises.
+to the kernels in csrc/sha256.cu (K1 `sha256_words`; K2 the append wave,
+one launch for every level of a wave up to 1,024 leaves, and the interior
+hash of one level; K7 the subtree reduce), CPU tensors to the plain
+PyTorch version beside it (`*_torch`), which computes in int64 lanes
+masked to 32 bits. There is no fallback: a kernel that cannot launch
+raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -151,6 +154,7 @@ def merkle_reduce_pow2_torch(leaf_digests: torch.Tensor) -> torch.Tensor:
 _CONFIGURED = False
 _ZERO_OFF: dict = {}
 _REDUCE_LEAVES = 512      # leaves one K7 block reduces (csrc/sha256.cu)
+WAVE_THREADS = 512        # k_merkle_wave's block: parents of its widest level
 
 
 def _lib() -> ctypes.CDLL:
@@ -160,9 +164,10 @@ def _lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.sha256_words_launch.argtypes = [vp, vp, ci, ci, vp]
         lib.merkle_level_launch.argtypes = [vp, vp, vp, vp, ci, vp]
+        lib.merkle_wave_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
         lib.merkle_reduce_launch.argtypes = [vp, vp, ci, vp]
         for fn in (lib.sha256_words_launch, lib.merkle_level_launch,
-                   lib.merkle_reduce_launch):
+                   lib.merkle_wave_launch, lib.merkle_reduce_launch):
             fn.restype = ci
         _CONFIGURED = True
     return lib
@@ -177,15 +182,14 @@ def _zero_off(device: torch.device) -> torch.Tensor:
 
 
 def _merkle_level(cur: torch.Tensor, bound: torch.Tensor, off: torch.Tensor,
-                  n_parents: int) -> torch.Tensor:
-    """One K2 launch: parent j hashes shifted rows (2j, 2j + 1) of cur,
-    where shifted[k] = bound if k - off < 0 else cur[k - off] and off is
-    the 0/1 flag read from device memory."""
-    out = torch.empty((n_parents, 8), dtype=torch.int32, device=cur.device)
-    if n_parents:
+                  out: torch.Tensor) -> torch.Tensor:
+    """One k_merkle_level launch: parent j (of out's rows) hashes shifted
+    rows (2j, 2j + 1) of cur, where shifted[k] = bound if k - off < 0 else
+    cur[k - off] and off is the 0/1 flag read from device memory."""
+    if out.shape[0]:
         ops.checked(_lib().merkle_level_launch(
             ops.ptr(cur), ops.ptr(bound), ops.ptr(off), ops.ptr(out),
-            n_parents, ops.stream_handle(cur.device)), "sha256_interior")
+            out.shape[0], ops.stream_handle(cur.device)), "sha256_interior")
         ops.count("sha256_interior")
     return out
 
@@ -199,7 +203,7 @@ def _check_words(t: torch.Tensor, name: str) -> None:
 def sha256_words(msgs: torch.Tensor) -> torch.Tensor:
     """SHA-256 of pre-padded messages: int32[N, 16*B] -> int32[N, 8].
     Padding is part of the hash input, so B must be each message's
-    standard (minimal) block count."""
+    standard (minimal) block count. On CUDA tensors: one K1 launch."""
     _check_words(msgs, "sha256_words")
     if not msgs.is_cuda:
         return sha256_words_torch(msgs)
@@ -207,6 +211,9 @@ def sha256_words(msgs: torch.Tensor) -> torch.Tensor:
     n, n_words = msgs.shape
     if n_words % 16:
         raise ValueError("messages must be padded to whole 64-byte blocks")
+    if msgs.data_ptr() % 16:
+        raise ValueError("sha256_words: K1 loads 16-byte chunks; the words "
+                         "must start on a 16-byte boundary")
     out = torch.empty((n, 8), dtype=torch.int32, device=msgs.device)
     if n:
         ops.checked(_lib().sha256_words_launch(
@@ -225,7 +232,77 @@ def hash_interior(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     ops.require_cuda("sha256_interior", left, right)
     n = left.shape[0]
     pairs = torch.stack((left, right), dim=1).reshape(2 * n, 8)
-    return _merkle_level(pairs, pairs, _zero_off(left.device), n)
+    out = torch.empty((n, 8), dtype=torch.int32, device=left.device)
+    return _merkle_level(pairs, pairs, _zero_off(left.device), out)
+
+
+@functools.lru_cache(maxsize=None)
+def wave_plan(n: int) -> tuple[tuple[str, int, int, int], ...]:
+    """The launches of one append wave over n leaves (a power of two):
+    (kernel, level, width, row) in order. "level" is one k_merkle_level
+    launch for one level whose width children make more parents than
+    k_merkle_wave's block holds; "wave" is one k_merkle_wave launch for
+    every level from `level` on. `width` is the launch's input width and
+    `row` the flat output's row where its first parent goes; the input is
+    new0 at level 0, else the width rows before `row`. Level l's parents
+    are rows [n - n/2^l, n - n/2^(l+1)) of the flat output."""
+    plan, level, width = [], 0, n
+    while width > 2 * WAVE_THREADS:
+        plan.append(("level", level, width, n - width))
+        level, width = level + 1, width // 2
+    if width >= 2:
+        plan.append(("wave", level, width, n - width))
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=None)
+def wave_rows(n: int) -> tuple[tuple[int, int], ...]:
+    """Each level's [start, end) rows in the flat output of a wave over n
+    leaves: n/2 rows, then n/4, ..., then 1."""
+    rows, width = [], n
+    while width >= 2:
+        rows.append((n - width, n - width // 2))
+        width //= 2
+    return tuple(rows)
+
+
+def merkle_wave_flat(new0: torch.Tensor, bounds: torch.Tensor,
+                     offs: torch.Tensor) -> torch.Tensor:
+    """merkle_wave's levels in one int32[N - 1, 8] tensor, level l at
+    rows wave_rows(N)[l]. On CUDA tensors: the launches of wave_plan(N),
+    one k_merkle_wave launch up to N = 2 WAVE_THREADS (the 1,024-leaf
+    wave of a 1,000-txn batch), 7 at N = 65,536."""
+    _check_words(new0, "merkle_wave")
+    n = new0.shape[0]
+    if n & (n - 1) or new0.shape[1] != 8:
+        raise ValueError(f"merkle_wave: want int32[N, 8] with N a power of "
+                         f"two, got {list(new0.shape)}")
+    if not new0.is_cuda:
+        outs = merkle_wave_torch(new0, bounds, offs)
+        return torch.cat(outs) if outs else new0[:0]
+    ops.require_cuda("merkle_wave", new0, bounds, offs)
+    depth = n.bit_length() - 1
+    if offs.dtype != torch.int32 or bounds.dtype != torch.int32:
+        raise ValueError("merkle_wave: bounds and offs must be int32")
+    if bounds.shape[0] < depth or bounds.shape[1:] != (8,) or \
+            offs.shape[0] < depth:
+        raise ValueError(f"merkle_wave: want bounds int32[{depth}, 8] and "
+                         f"offs int32[{depth}], got {list(bounds.shape)} "
+                         f"and {list(offs.shape)}")
+    flat = torch.empty((max(n - 1, 0), 8), dtype=torch.int32,
+                       device=new0.device)
+    lib, stream = _lib(), ops.stream_handle(new0.device)
+    for kernel, level, width, row in wave_plan(n):
+        cur = new0 if level == 0 else flat[row - width:row]
+        if kernel == "level":
+            _merkle_level(cur, bounds[level], offs[level:],
+                          flat[row:row + width // 2])
+        else:
+            ops.checked(lib.merkle_wave_launch(
+                ops.ptr(cur), ops.ptr(bounds), ops.ptr(offs),
+                ops.ptr(flat[row:]), width, level, stream), "merkle_wave")
+            ops.count("merkle_wave")
+    return flat
 
 
 def merkle_wave(new0: torch.Tensor, bounds: torch.Tensor,
@@ -238,24 +315,14 @@ def merkle_wave(new0: torch.Tensor, bounds: torch.Tensor,
             wave's first new node pairs with when offs[l] is 1.
     offs:   int32[log2 N], 0/1 per level — values, read on the device, so
             no host sync between levels.
-    Returns each level's parents: int32[N/2, 8], ..., int32[1, 8].
-    On CUDA tensors: one K2 launch per level.
+    Returns each level's parents: int32[N/2, 8], ..., int32[1, 8] (on
+    CUDA tensors, views into merkle_wave_flat's one output).
     """
     _check_words(new0, "merkle_wave")
     if not new0.is_cuda:
         return merkle_wave_torch(new0, bounds, offs)
-    ops.require_cuda("sha256_interior", new0, bounds, offs)
-    if offs.dtype != torch.int32 or bounds.dtype != torch.int32:
-        raise ValueError("merkle_wave: bounds and offs must be int32")
-    outs = []
-    cur = new0
-    level = 0
-    while cur.shape[0] >= 2:
-        cur = _merkle_level(cur, bounds[level], offs[level:],
-                            cur.shape[0] // 2)
-        outs.append(cur)
-        level += 1
-    return tuple(outs)
+    flat = merkle_wave_flat(new0, bounds, offs)
+    return torch.split(flat, [b - a for a, b in wave_rows(new0.shape[0])])
 
 
 def merkle_reduce_pow2(leaf_digests: torch.Tensor) -> torch.Tensor:

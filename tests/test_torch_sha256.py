@@ -79,6 +79,70 @@ def test_merkle_wave_n16_matches_jax():
     assert [_u32(g).tolist() for g in got] == [np.asarray(w).tolist() for w in want]
 
 
+_WAVE_BIG = np.random.default_rng(2048)
+_NEW_BIG, _BOUNDS_BIG = _words(_WAVE_BIG, 2048, 8), _words(_WAVE_BIG, 11, 8)
+
+
+def _offs_pattern(kind, depth):
+    if kind == "zeros":
+        return [0] * depth
+    if kind == "ones":
+        return [1] * depth
+    if kind == "alternating":
+        return [l % 2 for l in range(depth)]
+    return np.random.default_rng(depth).integers(0, 2, depth).tolist()
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+@pytest.mark.parametrize("kind", ["zeros", "ones", "alternating", "random"])
+def test_merkle_wave_wide_matches_jax(n, kind):
+    """The main path's wave (1,024 leaves) and the first wave wider than
+    k_merkle_wave's block (2,048), plain version and its flat form
+    against the JAX program, under four offset patterns."""
+    depth = n.bit_length() - 1
+    new0, bounds = _NEW_BIG[:n], _BOUNDS_BIG[:depth]
+    offs = np.array(_offs_pattern(kind, depth), dtype=np.int32)
+    got = port.merkle_wave_torch(_t(new0), _t(bounds), torch.from_numpy(offs))
+    want = ref.merkle_wave(jnp.asarray(new0), jnp.asarray(bounds),
+                           jnp.asarray(offs))
+    assert len(got) == len(want) == depth
+    for g, w in zip(got, want):
+        assert np.array_equal(_u32(g), np.asarray(w))
+    flat = port.merkle_wave_flat(_t(new0), _t(bounds), torch.from_numpy(offs))
+    assert flat.shape == (n - 1, 8)
+    for (a, b), w in zip(port.wave_rows(n), want):
+        assert np.array_equal(_u32(flat[a:b]), np.asarray(w))
+
+
+@pytest.mark.parametrize("log_n", range(1, 19))
+def test_wave_plan_covers_every_parent_once(log_n):
+    """Wide levels one launch each, then one k_merkle_wave for the rest:
+    1 launch up to 1,024 leaves, 2 at 2,048, 7 at 65,536, 9 at 262,144;
+    the launches' parent rows cover the flat output's N - 1 rows once."""
+    n = 1 << log_n
+    plan = port.wave_plan(n)
+    kinds = [k for k, _, _, _ in plan]
+    assert kinds == ["level"] * (len(plan) - 1) + ["wave"]
+    assert len(plan) == max(1, log_n - 9)
+    assert len(plan) == {1024: 1, 2048: 2, 65536: 7, 262144: 9}.get(n, len(plan))
+    covered = []
+    for i, (kind, level, width, row) in enumerate(plan):
+        assert width == n >> level and row == n - width
+        assert level == i
+        if kind == "level":
+            assert width // 2 > port.WAVE_THREADS
+            covered.append((row, row + width // 2))
+        else:
+            assert width // 2 <= port.WAVE_THREADS
+            covered.append((row, n - 1))
+    assert covered[0][0] == 0 and covered[-1][1] == n - 1
+    assert all(a[1] == b[0] for a, b in zip(covered, covered[1:]))
+    rows = port.wave_rows(n)
+    assert len(rows) == log_n and rows[0] == (0, n // 2)
+    assert rows[-1] == (n - 2, n - 1)
+    assert sum(b - a for a, b in rows) == n - 1
+
+
 def test_merkle_reduce_pow2_matches_jax_and_host():
     rng = np.random.default_rng(9)
     leaves = _words(rng, 8, 8)
@@ -140,6 +204,7 @@ def test_cpu_tensors_take_the_plain_versions():
     port.hash_interior(x, x)
     port.sha256_words(_t(_words(rng, 2, 16)))
     port.merkle_wave(x, x[:2], torch.zeros(2, dtype=torch.int32))
+    port.merkle_wave_flat(x, x[:2], torch.zeros(2, dtype=torch.int32))
     assert ops.LAUNCHES == before
 
 
@@ -180,3 +245,45 @@ def test_merkle_reduce_kernel_matches_plain_version(cuda_device, n):
     assert ops.LAUNCHES["merkle_reduce"] - before == (1 if n <= 512 else 2)
     assert torch.equal(got.cpu(), port.merkle_reduce_pow2(_t(leaves)))
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 32, 1024, 2048, 65536])
+def test_merkle_wave_kernel_matches_plain_version(cuda_device, n):
+    """K2's wave: one k_merkle_wave launch up to 1,024 leaves, after one
+    k_merkle_level launch per level wider than its block beyond."""
+    depth = n.bit_length() - 1
+    rng = np.random.default_rng(n)
+    new0, bounds = _words(rng, n, 8), _words(rng, depth, 8)
+    for kind in ("zeros", "ones", "alternating", "random"):
+        offs = np.array(_offs_pattern(kind, depth), dtype=np.int32)
+        before = dict(ops.LAUNCHES)
+        got = port.merkle_wave(port.to_tensor(new0, cuda_device),
+                               port.to_tensor(bounds, cuda_device),
+                               torch.from_numpy(offs).to(cuda_device))
+        assert ops.LAUNCHES["merkle_wave"] - before["merkle_wave"] == 1
+        assert ops.LAUNCHES["sha256_interior"] - before["sha256_interior"] \
+            == max(0, depth - 10)
+        want = port.merkle_wave_torch(_t(new0), _t(bounds),
+                                      torch.from_numpy(offs))
+        assert len(got) == len(want) == depth
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5, 33, 992])
+def test_sha256_words_kernel_every_block_count(cuda_device, n):
+    """K1 at 1-9 blocks (9 is more than a group of 8 lanes expands in one
+    turn), one launch per call, against the plain version and hashlib."""
+    rng = np.random.default_rng(n)
+    for nb in range(1, 10):
+        lo, hi = max(64 * (nb - 1) - 8, 0), 64 * nb - 9
+        msgs = [rng.bytes(int(rng.integers(lo, hi + 1))) for _ in range(n)]
+        words = np.stack([port.pad_to_words(m) for m in msgs])
+        before = ops.LAUNCHES["sha256_words"]
+        got = port.sha256_words(port.to_tensor(words, cuda_device))
+        assert ops.LAUNCHES["sha256_words"] == before + 1
+        assert torch.equal(got.cpu(), port.sha256_words_torch(_t(words)))
+        assert port.digests_to_bytes(got) == \
+            [hashlib.sha256(m).digest() for m in msgs]

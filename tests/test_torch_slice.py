@@ -6,6 +6,8 @@ The port runs its "torch" backends (the kernels' plain versions on CPU
 tensors) with thresholds low enough that every append wave reaches them;
 the reference runs its default hashlib ledger and cpu verifier.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -24,8 +26,10 @@ from plenum_tpu_torch.crypto.ed25519 import (TorchEd25519Verifier,
 from plenum_tpu_torch.execution.txn import NYM, new_txn
 from plenum_tpu_torch.ledger.ledger import txn_to_leaf
 from plenum_tpu_torch.ledger.merkle_verifier import MerkleVerifier
+from plenum_tpu_torch.ledger import tree_hasher
 from plenum_tpu_torch.ledger.tree_hasher import (TorchTreeHasher,
                                                  make_tree_hasher)
+from plenum_tpu_torch.ops.sha256 import to_tensor
 from plenum_tpu_torch.node.client_authn import CoreAuthNr, ReqAuthenticator
 from plenum_tpu_torch.utils.base58 import b58decode, b58encode
 
@@ -142,6 +146,56 @@ def test_ledger_matches_reference_at_base(base):
         path = [bytes.fromhex(h) for h in info["auditPath"]]
         assert verifier.verify_inclusion(txn_to_leaf(txn), info["seqNo"] - 1,
                                          n, path, port.root_hash)
+
+
+def _wave_hashlib(new_hashes, bounds, offs, counts):
+    """An append wave's levels by hashlib: level l pairs its nodes from the
+    old boundary on where offs[l] is 1, and keeps counts[l] parents."""
+    cur, levels = list(new_hashes), []
+    for l, count in enumerate(counts):
+        seq = ([bounds[l]] if offs[l] else []) + cur
+        cur = [hashlib.sha256(b"\x01" + seq[2 * i] + seq[2 * i + 1]).digest()
+               for i in range(count)]
+        levels.append(cur)
+    return levels
+
+
+@pytest.mark.parametrize("base", range(34))
+def test_fused_wave_levels_match_hashlib_at_base(base, monkeypatch):
+    """fused_wave_levels on the torch backend, as the ledger calls it for
+    waves of 3 and 11 txns from every base alignment: one upload of the
+    packed inputs, each level a slice of the flat output, every level's
+    parents equal to hashlib's, and the ledger's root the reference's."""
+    uploads = []
+
+    def upload(words, device):
+        uploads.append(words.shape)
+        return to_tensor(words, device)
+
+    monkeypatch.setattr(tree_hasher, "to_tensor", upload)
+    waves = []
+
+    class Spy(TorchTreeHasher):
+        def hash_wave_levels(self, new_hashes, bounds, offs, counts):
+            before = len(uploads)
+            got = super().hash_wave_levels(new_hashes, bounds, offs, counts)
+            depth = (max(2, len(new_hashes)) - 1).bit_length()
+            assert len(uploads) == before + 1
+            assert got == _wave_hashlib(new_hashes, bounds, offs,
+                                        counts[:depth])
+            waves.append(len(new_hashes))
+            return got
+
+    ref = _ref_ledger(base)
+    port = ledger_from_rows(ref.txn_log.iterator(),
+                            ref.tree.hash_store.kv.iterator(),
+                            Spy(min_batch=2, fuse_min=2, device="cpu"))
+    for size in (3, 11):
+        wave = _txns(port.size, size)
+        port.append_batch(wave)
+        ref.append_batch(wave)
+        assert port.root_hash == ref.root_hash
+    assert waves == [3, 11]
 
 
 def test_converted_ledger_appends_to_the_same_root():
