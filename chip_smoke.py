@@ -12,18 +12,24 @@ drives the port's paths on the card:
      also at 1, 5 and 33 keys or signatures (a lone quad, a partial warp,
      a tail block), with invalid keys and out-of-range key indices; K1
      also at the batch's 992 leaves and at 1, 5 and 33 messages of 1-9
-     blocks, against hashlib too; K2's wave at N = 2 ... 65,536 under
-     five offset patterns, each one k_merkle_wave launch after one
-     k_merkle_level launch per level wider than its block;
+     blocks, against hashlib too; K2's wave at N = 2 ... 262,144 under
+     five offset patterns, one k_merkle_wave launch up to 1,024 leaves
+     and one k_merkle_wave_tiled launch beyond, no k_merkle_level; K7 at
+     N = 2 ... 262,144 (one launch up to 512 leaves, two beyond); then
+     the wave at alternating sizes queued back to back (a stale arrival
+     counter would show as a wrong level);
   2. path A, slice 1, end to end: 1,000 signed NYM requests
      (Max3PCBatchSize) from 1,000 DIDs, 8 of them corrupted,
      authenticated through make_verifier("cuda"); the accepted requests'
      txns staged, rooted and committed on a domain ledger pre-filled to
      100,003 txns; then one catchup-scale append_batch of 65,536 txns at
-     default thresholds. Roots must equal a hashlib ledger's fed the same
-     txns, proofs must verify; each batch must take 2 K1 and 2
-     k_merkle_wave launches and no k_merkle_level launch, the path 3, 3
-     and 6;
+     default thresholds (one k_merkle_wave_tiled launch), and one of
+     4,096 txns on a hasher that declines the fused wave (its two widest
+     levels one k_merkle_level launch each). Roots must equal a hashlib
+     ledger's fed the same txns, proofs must verify; each batch must take
+     2 K1 and 2 k_merkle_wave launches and no other SHA-256 launch, the
+     path 4 K1, 2 k_merkle_wave, 1 k_merkle_wave_tiled and 2
+     k_merkle_level;
   3. path B, the sharded crypto plane (slice 2): the same 1,000 requests
      through make_verifier("cuda-sharded") by the byte dispatch and by the
      limb dispatch (cold, then warm key cache); ShardedCryptoPlane over a
@@ -35,11 +41,13 @@ drives the port's paths on the card:
   5. times: per kernel, the median of CUDA-event-timed launches after
      warm-up, its plain version's time, and its bound on this card (K3-K6,
      one quad of four threads per item, at 32, 64 and 128 threads per
-     block, each result held to the default's); for the SHA-256 kernels
+     block, each result held to the default's; the plane's steps also
+     with every kernel's plain version in its place); for the SHA-256 kernels
      also the device time that torch.profiler traces and the chain floor
      (the device time of one message alone; for K2 and K7 one level's
      device time plus, per further level, the slope of device time over
-     waves of 1-5 levels); a wave as one k_merkle_level launch per level;
+     waves of 1-5 levels); the tiled wave at 2,048 and 65,536 leaves; a
+     wave as one k_merkle_level launch per level;
      the inversion's share of K4; the plane's steps and the sharded
      batches.
 
@@ -51,8 +59,10 @@ there is no CUDA device or any phase fails. Imports nothing of JAX.
 
     python3 chip_smoke.py --sha-device-times
 
-only prints the device time of the SHA-256 kernels of the package beside
-the script (K1, K2's wave and level, K7) at the batch's shapes, through
+only prints the device time and the CUDA-event time of the SHA-256
+kernels of the package beside the script (K1, K2's wave at 1,024, 2,048
+and 65,536 leaves and its level, K7 at 1,024 and 65,536) at the paths'
+shapes, through
 wrappers every version of the port has: a copy of the script in another
 checkout times that checkout's kernels, so two trees compare in one call.
 """
@@ -191,9 +201,28 @@ def device_ms(fn, reps: int = 20, tries: int = 3):
     return "not measured: the profiler traced no kernel"
 
 
+def median_ms(fn, reps: int, warm: int = 2) -> float:
+    """Median CUDA-event time of one call of fn, ms, after warm calls."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
 def sha_device_times() -> int:
     """The --sha-device-times mode (module docstring): two passes of each
-    kernel's device time, ms per call, on inputs made from a seed."""
+    kernel's device time and of its event time (the median of 20 calls),
+    ms per call, on inputs made from a seed."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -211,18 +240,24 @@ def sha_device_times() -> int:
                                              dtype=np.int64).astype(np.int32)).to(dev)
     msgs = sha.to_tensor(np.stack([sha.pad_to_words(rng.bytes(340))
                                    for _ in range(992)]), dev)   # 6 blocks
-    wave0, pairs, bounds, leaves = words(1024), words(1024), words(10), \
+    wave0, pairs, bounds, leaves = words(1024), words(1024), words(16), \
         words(65536)
-    offs = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0, 1, 0], dtype=torch.int32,
-                        device=dev)
+    offs = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0, 1, 0, 1, 1, 0, 1, 0, 0],
+                        dtype=torch.int32, device=dev)
     cases = {"k1_992_msgs_6_blocks": lambda: sha.sha256_words(msgs),
-             "k2_wave_1024": lambda: sha.merkle_wave(wave0, bounds, offs),
+             "k2_wave_1024": lambda: sha.merkle_wave(wave0, bounds[:10],
+                                                     offs[:10]),
+             "k2_wave_2048": lambda: sha.merkle_wave(leaves[:2048],
+                                                     bounds[:11], offs[:11]),
+             "k2_wave_65536": lambda: sha.merkle_wave(leaves, bounds, offs),
              "k2_level_1024_pairs": lambda: sha.hash_interior(wave0, pairs),
              "k7_1024": lambda: sha.merkle_reduce_pow2(wave0),
              "k7_65536": lambda: sha.merkle_reduce_pow2(leaves)}
     times = {k: [device_ms(fn) for _ in range(2)] for k, fn in cases.items()}
-    print(json.dumps({"sha_device_ms": times, "tree": root,
-                      "gpu": _smi("name,power.limit")}))
+    events = {k: [median_ms(fn, 20) for _ in range(2)]
+              for k, fn in cases.items()}
+    print(json.dumps({"sha_device_ms": times, "sha_event_ms": events,
+                      "tree": root, "gpu": _smi("name,power.limit")}))
     return 0
 
 
@@ -374,17 +409,17 @@ def main() -> int:
             k1_check([rng.bytes(int(rng.integers(lo, hi + 1)))
                       for _ in range(n_e)], f"at {n_e} x {nb} blocks")
 
-    # K2: k_merkle_level on 1,024 pairs, and the wave at N = 2 ... 65,536
-    # under five offset patterns: one k_merkle_wave launch each, after one
-    # k_merkle_level launch per level wider than its block
+    # K2: k_merkle_level on 1,024 pairs, and the wave at N = 2 ... 262,144
+    # under five offset patterns: one k_merkle_wave launch up to 1,024
+    # leaves, one k_merkle_wave_tiled launch beyond
     def rand_words(n):
         return torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, 8),
                                              dtype=np.int64).astype(np.int32)).to(dev)
     left, right = rand_words(1024), rand_words(1024)
     bit_equal("sha256_interior", sha.hash_interior(left, right),
               sha.hash_interior_torch(left, right))
-    bounds16 = rand_words(16)
-    for n_w in (2, 4, 32, 512, 1024, 2048, 65536):
+    bounds18 = rand_words(18)
+    for n_w in (2, 4, 32, 512, 1024, 2048, 4096, 65536, 262144):
         depth = n_w.bit_length() - 1
         new_w = left if n_w == 1024 else rand_words(n_w)
         for pattern in ([0] * depth, [1] * depth, ([0, 1] * depth)[:depth],
@@ -392,17 +427,19 @@ def main() -> int:
                         rng.integers(0, 2, depth).tolist()):
             offs = torch.tensor(pattern, dtype=torch.int32, device=dev)
             before = dict(ops.LAUNCHES)
-            got = sha.merkle_wave(new_w, bounds16[:depth], offs)
-            if (ops.LAUNCHES["merkle_wave"] - before["merkle_wave"],
-                    ops.LAUNCHES["sha256_interior"]
-                    - before["sha256_interior"]) != (1, max(0, depth - 10)):
+            got = sha.merkle_wave(new_w, bounds18[:depth], offs)
+            tiled = n_w > 2 * sha.WAVE_THREADS
+            if tuple(ops.LAUNCHES[k_] - before[k_] for k_ in (
+                    "merkle_wave", "merkle_wave_tiled", "sha256_interior")) \
+                    != (int(not tiled), int(tiled), 0):
                 raise AssertionError(f"merkle_wave at N = {n_w}: launches "
                                      f"off the plan {sha.wave_plan(n_w)}")
-            want = sha.merkle_wave_torch(new_w, bounds16[:depth], offs)
+            want = sha.merkle_wave_torch(new_w, bounds18[:depth], offs)
             if len(got) != len(want):
                 raise AssertionError(f"merkle_wave at N = {n_w}: levels")
             for g, w_ in zip(got, want):
-                bit_equal("merkle_wave", g, w_)
+                bit_equal("merkle_wave_tiled" if tiled else "merkle_wave",
+                          g, w_)
     # K3: 1,024 keys, including y >= p, off-curve and (x = 0, sign = 1)
     key_signers = [signer(10_000 + i) for i in range(1016)]
     P = ed.P
@@ -538,12 +575,31 @@ def main() -> int:
         bit_equal("ed25519_verify_staged",
                   ed.verify_staged(sd_e, hd_e, ry_e, rs_e, ixl_e, tab6_e),
                   ed.verify_staged_torch(sd_e, hd_e, ry_e, rs_e, ixl_e, tab6_e))
-    # K7: roots at N = 1,024 (one block level, then the block roots) and
-    # 65,536 (128 blocks, then one block over their roots)
-    for n_leaves in (1024, 65536):
+    # K7: one launch at N = 2 and 512 (one block); two at 1,024, 65,536
+    # and 262,144 (2, 128 and 512 blocks, then one over their roots)
+    for n_leaves in (2, 512, 1024, 65536, 262144):
         w = rand_words(n_leaves)
-        bit_equal("merkle_reduce", sha.merkle_reduce_pow2(w),
-                  sha.merkle_reduce_pow2_torch(w))
+        before = ops.LAUNCHES["merkle_reduce"]
+        got = sha.merkle_reduce_pow2(w)
+        if ops.LAUNCHES["merkle_reduce"] - before != 1 + (n_leaves > 512):
+            raise AssertionError(f"merkle_reduce at N = {n_leaves}: "
+                                 f"launches off the plan")
+        bit_equal("merkle_reduce", got, sha.merkle_reduce_pow2_torch(w))
+    # the tiled wave's arrival counter on this stream: waves at
+    # alternating sizes queued back to back, each held to its plain
+    # version only after all of them were launched
+    queued = []
+    for n_leaves in (65536, 2048, 262144, 1024, 65536):
+        depth = n_leaves.bit_length() - 1
+        w = rand_words(n_leaves)
+        offs = torch.from_numpy(
+            rng.integers(0, 2, depth).astype(np.int32)).to(dev)
+        queued.append((w, offs,
+                       sha.merkle_wave_flat(w, bounds18[:depth], offs)))
+    for w, offs, flat in queued:
+        bit_equal("merkle_wave_tiled" if w.shape[0] > 2 * sha.WAVE_THREADS
+                  else "merkle_wave", flat, torch.cat(sha.merkle_wave_torch(
+                      w, bounds18[:offs.shape[0]], offs)))
     # K8: the probe's shape, N = 2,048 columns, k = 64
     chain_vals = [int.from_bytes(rng.bytes(32), "little") % ed.P
                   for _ in range(2048)]
@@ -617,20 +673,42 @@ def main() -> int:
     catchup.append_batch(bulk)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
+    # 4,096 txns more on a hasher that declines the fused wave: the
+    # per-level route, hash_children_batch on each level of at least
+    # min_batch pairs (2,048, then 1,024: two k_merkle_level launches)
+    per_level = Ledger(
+        tree=CompactMerkleTree(make_tree_hasher("cuda", min_batch=1024,
+                                                fuse_min=1 << 30),
+                               catchup.tree.hash_store),
+        txn_log=catchup.txn_log)
+    more = [new_txn(NYM, {"dest": "level:%d" % i, "role": "2"})
+            for i in range(4096)]
+    t_level = time.perf_counter()
+    per_level.append_batch(more)
+    torch.cuda.synchronize()
+    t_level_end = time.perf_counter()
     main_counts = dict(ops.LAUNCHES)
     reference.append_batch(bulk)
     if catchup.root_hash != reference.root_hash:
         raise AssertionError("65,536-append root differs from the hashlib "
                              "ledger's")
+    reference.append_batch(more)
+    if per_level.root_hash != reference.root_hash:
+        raise AssertionError("per-level 4,096-append root differs from the "
+                             "hashlib ledger's")
     require_launched("slice", main_counts,
-                     ("sha256_words", "merkle_wave", "sha256_interior",
-                      "ed25519_decompress", "ed25519_verify"))
+                     ("sha256_words", "merkle_wave", "merkle_wave_tiled",
+                      "sha256_interior", "ed25519_decompress",
+                      "ed25519_verify"))
     # each batch wave (staged, then committed) is one k_merkle_wave launch;
-    # the 65,536-txn wave is 6 k_merkle_level launches and one k_merkle_wave
+    # the 65,536-txn wave one k_merkle_wave_tiled launch; the per-level
+    # append one K1 and two k_merkle_level launches
     sha_counts = {k_: (batch_counts[k_], main_counts[k_])
-                  for k_ in ("sha256_words", "merkle_wave", "sha256_interior")}
-    if sha_counts != {"sha256_words": (2, 3), "merkle_wave": (2, 3),
-                      "sha256_interior": (0, 6)}:
+                  for k_ in ("sha256_words", "merkle_wave",
+                             "merkle_wave_tiled", "sha256_interior")}
+    if sha_counts != {"sha256_words": (2, 4), "merkle_wave": (2, 2),
+                      "merkle_wave_tiled": (0, 1),
+                      "sha256_interior": (0, 2)}:
         raise AssertionError(f"SHA-256 launches (per batch, on the path) "
                              f"off the plan: {sha_counts}")
     print(json.dumps({"slice": {
@@ -639,6 +717,7 @@ def main() -> int:
         "authenticate_s": t_auth - t_main,
         "stage_root_commit_s": t_commit - t_auth,
         "append_65536_s": t_end - t_bulk,
+        "append_4096_per_level_s": t_level_end - t_level,
         "launches_per_1000_txn_batch": batch_counts,
         "launches_main_path": main_counts,
         "sign_s": sign_s, "phase1_s": phase1_s, "prefill_s": prefill_s}}))
@@ -739,21 +818,6 @@ def main() -> int:
             raise AssertionError("field_chain disagrees with Python's pow")
 
     # --- phase 3: times at the slice's shapes ------------------------------
-    def median_ms(fn, reps: int, warm: int = 2) -> float:
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        pairs = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), \
-                torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            pairs.append((a, b))
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in pairs)
-
     # the 1,000-request batch's own inputs
     _, (s_u8, h_u8, k_u8, idx_m, r_u8) = verifier.stage_bytes(auth_items)
     _, tables_m, valid_m = ed.decompress_kernel(k_u8)
@@ -766,9 +830,10 @@ def main() -> int:
     wave0 = sha.to_tensor(sha.bytes_to_digests(
         [hashlib.sha256(m).digest() for m in batch_leaves]
         + [bytes(32)] * (1024 - len(batch_leaves))), dev)
-    wave_bounds = rand_words(10)
-    wave_offs = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0, 1, 0],
+    wave_bounds = rand_words(16)
+    wave_offs = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0, 1, 0, 1, 1, 0, 1, 0, 0],
                              dtype=torch.int32, device=dev)
+    wave_64k = rand_words(65536)     # the catchup append's wave width
 
     max_clock = _smi("clocks.max.sm")
     sm_mhz = float(max_clock.split()[0]) if max_clock else 1980.0
@@ -846,6 +911,11 @@ def main() -> int:
     def k7_bound(n_leaves):
         return bound(n_leaves * 32 + 32,
                      op_time(insns(sass_k2, [(n_leaves - 1, 0)])))
+
+    def wave_bound(n_leaves):      # leaves, bounds and offs in, N - 1 out
+        levels = n_leaves.bit_length() - 1
+        return bound(n_leaves * 32 + levels * 36 + (n_leaves - 1) * 32,
+                     op_time(insns(sass_k2, [(n_leaves - 1, 0)])))
     rows = [
         ("K1", "sha256_words", "plenum_tpu_torch/csrc/sha256.cu",
          "plenum_tpu/ops/sha256.py:87",
@@ -857,11 +927,19 @@ def main() -> int:
           "launches_per_call": len(k1_inputs)}),
         ("K2", "merkle_wave", "plenum_tpu_torch/csrc/sha256.cu",
          "plenum_tpu/ops/sha256.py:142",
-         lambda: sha.merkle_wave(wave0, wave_bounds, wave_offs),
-         lambda: sha.merkle_wave_torch(wave0, wave_bounds, wave_offs),
+         lambda: sha.merkle_wave(wave0, wave_bounds[:10], wave_offs[:10]),
+         lambda: sha.merkle_wave_torch(wave0, wave_bounds[:10],
+                                       wave_offs[:10]),
          bound(1024 * 32 + 10 * 36 + 1023 * 32, op_time(k2_insns)),
          {"wave": 1024, "parents": 1023, "levels": 10,
           "launches_per_call": 1}),
+        ("K2T", "merkle_wave_tiled", "plenum_tpu_torch/csrc/sha256.cu",
+         "plenum_tpu/ops/sha256.py:142",
+         lambda: sha.merkle_wave(wave_64k, wave_bounds, wave_offs),
+         lambda: sha.merkle_wave_torch(wave_64k, wave_bounds, wave_offs),
+         wave_bound(65536),
+         {"wave": 65536, "parents": 65535, "levels": 16,
+          "tiles": 65536 // 1024 + 1, "launches_per_call": 1}),
         ("K2L", "sha256_interior", "plenum_tpu_torch/csrc/sha256.cu",
          "plenum_tpu/ops/sha256.py:123",
          lambda: sha.hash_interior(left, right),
@@ -911,20 +989,23 @@ def main() -> int:
     ]
     path_counts = {"slice": main_counts, "sharded": sharded_counts,
                    "probe": probe_counts}
-    path_of = {"K1": "slice", "K2": "slice", "K2L": "slice", "K3": "slice",
+    path_of = {"K1": "slice", "K2": "slice", "K2T": "slice", "K2L": "slice",
+               "K3": "slice",
                "K4": "slice", "K5": "sharded", "K6": "sharded",
                "K7": "sharded", "K8": "probe"}
     # (threads per item, per block), fixed in csrc/sha256.cu and
     # ed25519.cu, but for K3-K6: a quad per item, block size swept
     fixed_geometry = {"sha256_words": (8, 128), "merkle_wave": (1, 512),
+                      "merkle_wave_tiled": (1, 512),
                       "sha256_interior": (1, 128), "merkle_reduce": (1, 256),
                       "field_chain": (1, 128)}
     # the SHA-256 kernels' chain floor: one launch plus the chain of its
     # levels. Levels of at most 16 parents run in warp 0 alone, so a wave
     # (or a K7 reduce) over N = 2 ... 32 costs one parent's chain more per
     # level: floor = t(1 level) + (levels - 1) x the least-squares slope
-    # of device time over 1-5 levels, each kernel its own. K1: one message
-    # of the batch's 6 blocks alone.
+    # of device time over 1-5 levels, each kernel its own (the tiled wave:
+    # a tile's levels, then its top's, on the wave's sweep). K1: one
+    # message of the batch's 6 blocks alone.
     def level_sweep(fn) -> dict:
         return {lv: device_ms(lambda lv=lv: fn(1 << lv)) for lv in range(1, 11)}
 
@@ -943,12 +1024,18 @@ def main() -> int:
     chain_of = {"sha256_words": lambda levels: device_ms(
                     lambda: sha.sha256_words(one_message)),
                 "merkle_wave": lambda levels: chain_floor(wave_sweep, levels),
+                "merkle_wave_tiled": lambda levels: chain_floor(wave_sweep,
+                                                                levels),
                 "sha256_interior": lambda levels: device_ms(
                     lambda: sha.hash_interior(left[:1], right[:1])),
                 "merkle_reduce": lambda levels: chain_floor(reduce_sweep,
                                                             levels)}
+    tiled_sweep = {lv: device_ms(lambda lv=lv: sha.merkle_wave(
+        wave_64k[:1 << lv], wave_bounds[:lv], wave_offs[:lv]))
+        for lv in (11, 16)}
     print(json.dumps({"chain_floor_sweeps_device_ms_by_levels": {
-        "merkle_wave": wave_sweep, "merkle_reduce": reduce_sweep}}))
+        "merkle_wave": wave_sweep, "merkle_reduce": reduce_sweep,
+        "merkle_wave_tiled": tiled_sweep}}))
 
     def same(a, b) -> bool:
         if isinstance(a, (tuple, list)):
@@ -1041,20 +1128,32 @@ def main() -> int:
                 wave0 if level == 0 else flat[rows[level - 1][0]:a],
                 wave_bounds[level], wave_offs[level:], flat[a:b])
         return flat
-    if not torch.equal(by_levels(),
-                       sha.merkle_wave_flat(wave0, wave_bounds, wave_offs)):
+    if not torch.equal(by_levels(), sha.merkle_wave_flat(
+            wave0, wave_bounds[:10], wave_offs[:10])):
         raise AssertionError("the wave by levels and by k_merkle_wave differ")
     print(json.dumps({"merkle_wave_by_levels": {
         "wave": 1024, "launches_per_call": 10,
         "ms": median_ms(by_levels, 20), "device_ms": device_ms(by_levels)}}))
-    # K7 at 65,536 leaves (two launches: 128 blocks, then one)
-    leaves_64k = rand_words(65536)
+    # K7 at 65,536 leaves (two launches: 128 blocks, then one over their
+    # roots), and the tiled wave at 2,048 (one launch: 3 tiles, a 1-level
+    # top)
     k7_64k = k7_bound(65536)
     print(json.dumps({"merkle_reduce_65536": {
-        "ms": median_ms(lambda: sha.merkle_reduce_pow2(leaves_64k), 20),
+        "ms": median_ms(lambda: sha.merkle_reduce_pow2(wave_64k), 20),
+        "device_ms": device_ms(lambda: sha.merkle_reduce_pow2(wave_64k)),
         "plain_ms": median_ms(
-            lambda: sha.merkle_reduce_pow2_torch(leaves_64k), 3, warm=1),
+            lambda: sha.merkle_reduce_pow2_torch(wave_64k), 3, warm=1),
         "bound_ms": k7_64k[0], "bound_by": k7_64k[1]}}))
+    wave_2k = (wave_64k[:2048], wave_bounds[:11], wave_offs[:11])
+    w2k_bound = wave_bound(2048)
+    print(json.dumps({"merkle_wave_tiled_2048": {
+        "ms": median_ms(lambda: sha.merkle_wave(*wave_2k), 20),
+        "device_ms": tiled_sweep[11],
+        "chain_floor_ms": chain_floor(wave_sweep, 11),
+        "plain_ms": median_ms(lambda: sha.merkle_wave_torch(*wave_2k), 3,
+                              warm=1),
+        "bound_ms": w2k_bound[0], "bound_by": w2k_bound[1],
+        "tiles": 3, "launches_per_call": 1}}))
     # B8: the plane's steps at grid [2, 1,024] on the 4-shard roster
     # its bound: the sum of its kernels' bounds; per shard K3 + K4 (or K5
     # + K6) over every staged key and its 2 x 1,024 / 4 signatures, and K7
@@ -1062,10 +1161,33 @@ def main() -> int:
     n_sh = plane.mesh.size
     sigs_sh, leaves_sh = 2 * 1024 // n_sh, plane_leaves.shape[0] // n_sh
     k7_sh = n_sh * k7_bound(leaves_sh)[0] + k7_bound(n_sh)[0]
+
+    def plane_plain_ms(step: str, args) -> float:
+        """The plane's step with each kernel's plain version in its place,
+        on the same tensors on the card."""
+        kernels = (ed.verify_kernel_bytes, ed.verify_kernel_indexed,
+                   sha.merkle_reduce_pow2)
+        ed.verify_kernel_bytes = ed.verify_kernel_bytes_torch
+        ed.verify_kernel_indexed = lambda sd, hd, aq, ix, ry, rs: \
+            ed.verify_staged_torch(sd, hd, ry, rs, ix,
+                                   ed.quarter_tables_torch(aq))
+        sha.merkle_reduce_pow2 = sha.merkle_reduce_pow2_torch
+        before = dict(ops.LAUNCHES)
+        try:
+            ms = median_ms(lambda: getattr(plane, step)(*args), 3, warm=1)
+        finally:
+            (ed.verify_kernel_bytes, ed.verify_kernel_indexed,
+             sha.merkle_reduce_pow2) = kernels
+        if ops.LAUNCHES != before:     # a name bound before the swap
+            raise AssertionError(f"plane {step} with the plain versions "
+                                 f"still launched a kernel")
+        return ms
     print(json.dumps({"plane_steps": {
         "grid": [2, 1024], "shards": n_sh, "leaves": 1024,
         "step_bytes_ms": median_ms(lambda: plane.step_bytes(*args_pb), 10),
         "step_ms": median_ms(lambda: plane.step(*args_pl), 10),
+        "step_bytes_plain_ms": plane_plain_ms("step_bytes", args_pb),
+        "step_plain_ms": plane_plain_ms("step", args_pl),
         "step_bytes_bound_ms": n_sh * (k3_bound(k_g.shape[0])[0] + k4_bound(
             sigs_sh, k_g.shape[0])[0]) + k7_sh,
         "step_bound_ms": n_sh * (k5_bound(aq_g.shape[0])[0] + k6_bound(

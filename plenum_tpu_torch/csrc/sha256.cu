@@ -5,8 +5,8 @@
 //   K2 merkle_wave      <- plenum_tpu/ops/sha256.py:142 merkle_wave: every
 //                          level of a wave of up to 1,024 leaves in one
 //                          launch of one block (k_merkle_wave); a wider
-//                          wave's widest levels one launch each
-//                          (k_merkle_level), then one k_merkle_wave
+//                          wave, up to 2^20 leaves, in one launch of
+//                          aligned tiles (k_merkle_wave_tiled)
 //      merkle_level     <- :123 hash_interior (k_merkle_level, one launch
 //                          with the pairs interleaved, offset 0)
 //   K7 merkle_reduce    <- plenum_tpu/ops/sha256.py:129 merkle_reduce_pow2
@@ -48,6 +48,16 @@
 // thread 0 pairs the boundary with the level's first node. K7 (256
 // threads) reduces each 512-leaf block of a power-of-two subtree to its
 // root, and launches again over the block roots when N > 512.
+//
+// A wave wider than one block is still one launch (k_merkle_wave_tiled,
+// kWaveThreads threads, 2^11 ... 2^20 leaves): each block hashes an
+// aligned tile of kTileLevels levels in shared memory (tile_parents) and
+// stores its nodes, then arrives at a counter in device memory
+// (last_to_arrive); the last block to arrive reads the other tiles' top
+// nodes through L2 and hashes the levels above them as k_merkle_wave's
+// body. No block waits for another, so the grid may exceed the blocks the
+// card holds at once. The counter is an int32 the wrapper allocates
+// zeroed once per device and stream; the last block sets it back to 0.
 //
 // Plain C interface (bound with ctypes): each launcher returns
 // cudaGetLastError() right after its launch.
@@ -190,6 +200,20 @@ HD void merkle_parent_one(const uint32_t* cur, const uint32_t* bound, int off,
   sha256_interior_one(left, cur + 8 * kr, out);
 }
 
+// A node that another block of this launch stored, read through L2
+// (ld.global.cg on the card, 16 bytes at a time: node rows are 32-byte
+// aligned): never a stale L1 line.
+HD void load_node_l2(const uint32_t* src, uint32_t dst[8]) {
+#ifdef __CUDA_ARCH__
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4 a = __ldcg(s), b = __ldcg(s + 1);
+  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+#else
+  for (int i = 0; i < 8; ++i) dst[i] = src[i];
+#endif
+}
+
 // The levels of a subtree in one block of kT threads, thread t's share.
 // Level 0 pairs `width` children (a power of two, at most 2 kT) from
 // `in`; level l > 0 pairs the previous level's parents from buf, which
@@ -199,7 +223,9 @@ HD void merkle_parent_one(const uint32_t* cur, const uint32_t* bound, int off,
 // parents are also stored there at row width - width / 2^l. Returns the
 // buffer (0 or 1) that holds the last level's parent. `sync` is the
 // block's barrier: block() for all kT threads, warp() for warp 0's.
-template <int kT, class Sync>
+// kL2: `in` holds nodes other blocks of this launch stored (the top of
+// the tiled wave), so level 0 reads them through load_node_l2.
+template <int kT, bool kL2 = false, class Sync>
 HD int subtree_levels(const Sync& sync, int t, const uint32_t* in, int width,
                       const uint32_t* bounds, const int32_t* offs,
                       uint32_t* out, uint32_t (*buf)[8]) {
@@ -214,8 +240,21 @@ HD int subtree_levels(const Sync& sync, int t, const uint32_t* in, int width,
     }
     if (t < w / 2) {
       uint32_t p[8];
-      merkle_parent_one(cur, bounds ? bounds + 8 * level : nullptr,
-                        offs ? offs[level] & 1 : 0, t, p);
+      if (kL2 && level == 0) {
+        int kl = 2 * t - (offs ? offs[0] & 1 : 0);
+        uint32_t c[16];       // the bound: an input, at any alignment
+        if (kl < 0) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) c[i] = bounds[i];
+        } else {
+          load_node_l2(cur + 8 * kl, c);
+        }
+        load_node_l2(cur + 8 * (kl + 1), c + 8);
+        sha256_interior_one(c, c + 8, p);
+      } else {
+        merkle_parent_one(cur, bounds ? bounds + 8 * level : nullptr,
+                          offs ? offs[level] & 1 : 0, t, p);
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i) buf[dst * kT + t][i] = p[i];
       if (out) {
@@ -225,6 +264,63 @@ HD int subtree_levels(const Sync& sync, int t, const uint32_t* in, int width,
     }
   }
   return dst;
+}
+
+// The tiles of a wide wave (k_merkle_wave_tiled). With the virtual base
+// B = sum_l (offs[l] & 1) 2^l, level l's input node i is absolute node
+// (B >> l) + i of its level; level l's parents are absolute
+// [B >> (l+1), (B >> (l+1)) + n / 2^(l+1)) of level l + 1; parent a hashes
+// absolute children 2a and 2a + 1, and a child at absolute (B >> l) - 1
+// is level l's bound (only where offs[l] is 1; no child lies further
+// left). Block q's parents at level l, with s = kT >> l parent slots, are
+// [q s, (q + 1) s) intersected with that window: [*lo, *hi). Blocks
+// q = (B >> T) ... (B >> T) + n / 2^T (T = log2(2 kT) levels, n / 2^T + 1
+// blocks, the first and last partial) hash every parent of levels
+// 0 ... T - 1 once, and every child a block reads is its own node or the
+// bound. Mirrored by plenum_tpu_torch/ops/sha256.py tile_parents, which
+// the CPU tests hold to these rules.
+HD void tile_parents(int n, int base, int q, int level, int s, int* lo,
+                     int* hi) {
+  int f = base >> (level + 1);
+  *lo = q * s > f ? q * s : f;
+  *hi = (q + 1) * s < f + (n >> (level + 1)) ? (q + 1) * s
+                                             : f + (n >> (level + 1));
+}
+
+// Block q's tile of a wide wave, thread t's share: levels 0 ... T - 1
+// (kT parent slots at level 0, one at level T - 1). Slot j of level l is
+// absolute parent q s + j, so children pair as local slots (2j, 2j + 1)
+// of the previous level's buffer in buf (level 0: rows 2a - B and
+// 2a + 1 - B of `in`), except the bound. Each parent is also stored at its row of the flat
+// output (level l's parents from row n - n / 2^l on).
+template <int kT, class Sync>
+HD void tile_levels(const Sync& sync, int t, int q, int base,
+                    const uint32_t* in, int n, const uint32_t* bounds,
+                    uint32_t* out, uint32_t (*buf)[8]) {
+  for (int s = kT, level = 0; s >= 1; s >>= 1, ++level) {
+    if (level > 0) {           // 2 s: the slots the previous level wrote
+      if (2 * s > 32) sync.block();
+      else sync.warp();
+    }
+    int lo, hi, a = q * s + t;
+    tile_parents(n, base, q, level, s, &lo, &hi);
+    if (t < s && a >= lo && a < hi) {
+      // children 2a (local slot 2t) and 2a + 1; the bound, 2 (B >> (l+1)),
+      // is even, so only the left child can be it
+      const uint32_t* kids = level == 0 ? in + 8 * (2 * a - base)
+                                        : buf[((level - 1) & 1) * kT + 2 * t];
+      uint32_t p[8];
+      sha256_interior_one(
+          2 * a == (base >> level) - 1 ? bounds + 8 * level : kids, kids + 8,
+          p);
+      uint32_t* o = out + 8 * ((n - (n >> level)) + a - (base >> (level + 1)));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        buf[(level & 1) * kT + t][i] = p[i];
+        o[i] = p[i];
+      }
+    }
+  }
 }
 
 #ifdef __CUDACC__
@@ -306,6 +402,68 @@ k_merkle_wave(const uint32_t* __restrict__ cur,
                                bounds + 8 * level0, offs + level0, out, buf);
 }
 
+// The arrival of one block of the tiled wave at `counter`; every
+// thread calls it after its last store that another block reads, and
+// every block of the grid calls it, one with no work too. True in every
+// thread of the last of `blocks` blocks to arrive, which then reads the
+// other blocks' stores through L2 (subtree_levels<kT, true>). After the
+// barrier, thread 0's fence orders the whole block's stores before its
+// arrival (fences are cumulative), as in a cooperative grid sync. The
+// last block also sets the counter back to 0 for the next launch on the
+// stream: every block has arrived by then.
+__device__ bool last_to_arrive(int* counter, int blocks) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();          // the block's stores, before the arrival
+    last = atomicAdd(counter, 1) == blocks - 1;
+    if (last) {
+      __threadfence();        // the others' stores, before the reads
+      *counter = 0;
+    }
+  }
+  __syncthreads();
+  return last;
+}
+
+// A wave of n = 2^11 ... 2^20 children (2 kWaveThreads << kTileLevels) in
+// one launch, from level level0 of the wave on (bounds and offs are the
+// wave's whole arrays; out points at level level0's rows of the flat
+// output): n / 2^kTileLevels + 1 blocks, block b hashing tile
+// (B >> kTileLevels) + b (tile_levels), then the last block to arrive
+// hashes levels kTileLevels ... log2 n - 1 from the n / 2^kTileLevels
+// nodes of level kTileLevels - 1: k_merkle_wave's body at that level.
+static constexpr int kTileLevels = 10;       // log2(2 kWaveThreads)
+
+// (kWaveThreads, 1): with the thread count alone, ptxas held it to 64
+// registers and spilled.
+__global__ void __launch_bounds__(kWaveThreads, 1)
+k_merkle_wave_tiled(const uint32_t* __restrict__ cur,
+                    const uint32_t* __restrict__ bounds,
+                    const int32_t* __restrict__ offs, uint32_t* out, int n,
+                    int level0, int* counter) {
+  __shared__ uint32_t buf[2 * kWaveThreads][8];
+  __shared__ int base_sh;
+  int t = threadIdx.x;
+  bounds += 8 * level0;
+  offs += level0;
+  if (t < 32) {                // the virtual base B from the 0/1 offsets
+    int depth = 31 - __clz(n);
+    unsigned bit = t < depth ? (unsigned)(offs[t] & 1) << t : 0u;
+    bit = __reduce_or_sync(0xffffffffu, bit);
+    if (t == 0) base_sh = (int)bit;
+  }
+  __syncthreads();
+  int base = base_sh;
+  tile_levels<kWaveThreads>(BlockSync{}, t, (base >> kTileLevels) + blockIdx.x,
+                            base, cur, n, bounds, out, buf);
+  if (!last_to_arrive(counter, gridDim.x)) return;
+  subtree_levels<kWaveThreads, true>(
+      BlockSync{}, t, out + 8 * (n - (n >> (kTileLevels - 1))),
+      n >> kTileLevels, bounds + 8 * kTileLevels, offs + kTileLevels,
+      out + 8 * (n - (n >> kTileLevels)), buf);
+}
+
 // K7: block b reduces leaves [512 b, 512 b + w), w = min(n, 512), to
 // out[b]. n is a power of two, so w is too.
 static constexpr int kReduceThreads = 256;
@@ -354,6 +512,23 @@ extern "C" int merkle_wave_launch(const void* cur, const void* bounds,
   k_merkle_wave<<<1, kWaveThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)cur, (const uint32_t*)bounds, (const int32_t*)offs,
       (uint32_t*)out, n, level0);
+  return (int)cudaGetLastError();
+}
+
+// n: the wave's width from level level0 on, a power of two in
+// (2 kWaveThreads, 2 kWaveThreads << kTileLevels]; anything else is
+// refused. counter: the stream's arrival counter, 0 between launches.
+extern "C" int merkle_wave_tiled_launch(const void* cur, const void* bounds,
+                                        const void* offs, void* out, int n,
+                                        int level0, void* counter,
+                                        void* stream) {
+  if (n <= 2 * kWaveThreads || n > (2 * kWaveThreads << kTileLevels) ||
+      (n & (n - 1)) || level0 < 0)
+    return (int)cudaErrorInvalidValue;
+  k_merkle_wave_tiled<<<(n >> kTileLevels) + 1, kWaveThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const uint32_t*)cur, (const uint32_t*)bounds, (const int32_t*)offs,
+      (uint32_t*)out, n, level0, (int*)counter);
   return (int)cudaGetLastError();
 }
 

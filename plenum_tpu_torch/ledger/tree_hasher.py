@@ -19,9 +19,10 @@ import numpy as np
 import torch
 
 from plenum_tpu_torch import ops
-from plenum_tpu_torch.ops.sha256 import (bytes_to_digests, digests_to_bytes,
-                                         hash_interior, merkle_wave_flat,
-                                         sha256_batch, to_tensor, wave_rows)
+from plenum_tpu_torch.ops.sha256 import (TILED_MAX, bytes_to_digests,
+                                         digests_to_bytes, hash_interior,
+                                         merkle_wave_flat, sha256_batch,
+                                         to_tensor, wave_rows)
 
 
 class TreeHasher:
@@ -111,8 +112,9 @@ class TorchTreeHasher(TreeHasher):
 
     def hash_wave_levels(self, new_hashes, bounds, offs, counts):
         """Fused interior levels for one append wave, or None to decline
-        (small waves stay on the hashlib per-level path)."""
-        if len(new_hashes) < self._fuse_min:
+        (small waves stay on the hashlib per-level path, waves wider than
+        one launch takes go level by level through hash_children_batch)."""
+        if not self._fuse_min <= len(new_hashes) <= TILED_MAX:
             return None
         return fused_wave_levels(new_hashes, bounds, offs, counts, self.device)
 

@@ -37,6 +37,7 @@ LAUNCHES: dict[str, int] = {
     "sha256_words": 0,        # K1, csrc/sha256.cu
     "sha256_interior": 0,     # K2, one level (k_merkle_level), csrc/sha256.cu
     "merkle_wave": 0,         # K2, a wave's levels (k_merkle_wave), csrc/sha256.cu
+    "merkle_wave_tiled": 0,   # K2, a wide wave's levels (k_merkle_wave_tiled)
     "ed25519_decompress": 0,  # K3, csrc/ed25519.cu
     "ed25519_verify": 0,      # K4, csrc/ed25519.cu
     "ed25519_quarter_tables": 0,  # K5, csrc/ed25519.cu

@@ -10,7 +10,7 @@ words of B padded 64-byte blocks, digests int32[N, 8].
 
 Each public function dispatches on where its tensors lie: CUDA tensors go
 to the kernels in csrc/sha256.cu (K1 `sha256_words`; K2 the append wave,
-one launch for every level of a wave up to 1,024 leaves, and the interior
+one launch for every level of a wave up to 2^20 leaves, and the interior
 hash of one level; K7 the subtree reduce), CPU tensors to the plain
 PyTorch version beside it (`*_torch`), which computes in int64 lanes
 masked to 32 bits. There is no fallback: a kernel that cannot launch
@@ -153,8 +153,11 @@ def merkle_reduce_pow2_torch(leaf_digests: torch.Tensor) -> torch.Tensor:
 
 _CONFIGURED = False
 _ZERO_OFF: dict = {}
+_ARRIVALS: dict = {}
 _REDUCE_LEAVES = 512      # leaves one K7 block reduces (csrc/sha256.cu)
 WAVE_THREADS = 512        # k_merkle_wave's block: parents of its widest level
+TILE_LEVELS = 10          # levels of one k_merkle_wave_tiled tile
+TILED_MAX = 2 * WAVE_THREADS << TILE_LEVELS   # its widest wave, 2^20 leaves
 
 
 def _lib() -> ctypes.CDLL:
@@ -165,12 +168,27 @@ def _lib() -> ctypes.CDLL:
         lib.sha256_words_launch.argtypes = [vp, vp, ci, ci, vp]
         lib.merkle_level_launch.argtypes = [vp, vp, vp, vp, ci, vp]
         lib.merkle_wave_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+        lib.merkle_wave_tiled_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp,
+                                                 vp]
         lib.merkle_reduce_launch.argtypes = [vp, vp, ci, vp]
         for fn in (lib.sha256_words_launch, lib.merkle_level_launch,
-                   lib.merkle_wave_launch, lib.merkle_reduce_launch):
+                   lib.merkle_wave_launch, lib.merkle_wave_tiled_launch,
+                   lib.merkle_reduce_launch):
             fn.restype = ci
         _CONFIGURED = True
     return lib
+
+
+def _arrivals(device: torch.device, stream: int) -> torch.Tensor:
+    """The arrival counter of k_merkle_wave_tiled on `stream` of the
+    device: int32, zeroed once here, set back to 0 by each launch's last
+    block. One per (device, stream): launches on
+    one stream run in turn, launches on two may overlap."""
+    key = (device, stream)
+    c = _ARRIVALS.get(key)
+    if c is None:
+        c = _ARRIVALS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return c
 
 
 def _zero_off(device: torch.device) -> torch.Tensor:
@@ -239,20 +257,43 @@ def hash_interior(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def wave_plan(n: int) -> tuple[tuple[str, int, int, int], ...]:
     """The launches of one append wave over n leaves (a power of two):
-    (kernel, level, width, row) in order. "level" is one k_merkle_level
-    launch for one level whose width children make more parents than
-    k_merkle_wave's block holds; "wave" is one k_merkle_wave launch for
-    every level from `level` on. `width` is the launch's input width and
-    `row` the flat output's row where its first parent goes; the input is
-    new0 at level 0, else the width rows before `row`. Level l's parents
-    are rows [n - n/2^l, n - n/2^(l+1)) of the flat output."""
-    plan, level, width = [], 0, n
-    while width > 2 * WAVE_THREADS:
-        plan.append(("level", level, width, n - width))
-        level, width = level + 1, width // 2
-    if width >= 2:
-        plan.append(("wave", level, width, n - width))
-    return tuple(plan)
+    (kernel, level, width, row). "wave" is one k_merkle_wave launch (one
+    block, up to 2 WAVE_THREADS leaves) and "tiled" one
+    k_merkle_wave_tiled launch (tiles, then a top, up to TILED_MAX) for
+    every level; `width` is n and `row` 0, the flat output's row where
+    the first parent goes. Level l's parents are rows
+    [n - n/2^l, n - n/2^(l+1)) of the flat output. A wider wave is
+    refused: TorchTreeHasher declines it, and the ledger hashes it level
+    by level."""
+    if n > TILED_MAX:
+        raise ValueError(f"merkle_wave: {n} leaves, more than the "
+                         f"{TILED_MAX} one launch takes")
+    if n > 2 * WAVE_THREADS:
+        return (("tiled", 0, n, 0),)
+    return (("wave", 0, n, 0),) if n >= 2 else ()
+
+
+def wave_base(offs) -> int:
+    """The tiled wave's virtual base B = sum_l offs[l] 2^l: level l's
+    input node i is absolute node (B >> l) + i of its level."""
+    return sum((int(o) & 1) << l for l, o in enumerate(offs))
+
+
+def tile_blocks(n: int, base: int) -> range:
+    """The tiles (blocks) of k_merkle_wave_tiled over n leaves at virtual
+    base `base`: n / 2^TILE_LEVELS + 1 of them, the first and last partial
+    (csrc/sha256.cu k_merkle_wave_tiled)."""
+    first = base >> TILE_LEVELS
+    return range(first, first + (n >> TILE_LEVELS) + 1)
+
+
+def tile_parents(n: int, base: int, q: int, level: int) -> range:
+    """Mirror of csrc/sha256.cu tile_parents: the absolute parents (of
+    level + 1) that tile q hashes at `level` < TILE_LEVELS, its
+    WAVE_THREADS >> level slots intersected with the level's window."""
+    s = WAVE_THREADS >> level
+    f = base >> (level + 1)
+    return range(max(q * s, f), min((q + 1) * s, f + (n >> (level + 1))))
 
 
 @functools.lru_cache(maxsize=None)
@@ -269,9 +310,10 @@ def wave_rows(n: int) -> tuple[tuple[int, int], ...]:
 def merkle_wave_flat(new0: torch.Tensor, bounds: torch.Tensor,
                      offs: torch.Tensor) -> torch.Tensor:
     """merkle_wave's levels in one int32[N - 1, 8] tensor, level l at
-    rows wave_rows(N)[l]. On CUDA tensors: the launches of wave_plan(N),
+    rows wave_rows(N)[l]. On CUDA tensors: the launch of wave_plan(N),
     one k_merkle_wave launch up to N = 2 WAVE_THREADS (the 1,024-leaf
-    wave of a 1,000-txn batch), 7 at N = 65,536."""
+    wave of a 1,000-txn batch), one k_merkle_wave_tiled launch up to
+    TILED_MAX."""
     _check_words(new0, "merkle_wave")
     n = new0.shape[0]
     if n & (n - 1) or new0.shape[1] != 8:
@@ -293,13 +335,16 @@ def merkle_wave_flat(new0: torch.Tensor, bounds: torch.Tensor,
                        device=new0.device)
     lib, stream = _lib(), ops.stream_handle(new0.device)
     for kernel, level, width, row in wave_plan(n):
-        cur = new0 if level == 0 else flat[row - width:row]
-        if kernel == "level":
-            _merkle_level(cur, bounds[level], offs[level:],
-                          flat[row:row + width // 2])
+        if kernel == "tiled":
+            ops.checked(lib.merkle_wave_tiled_launch(
+                ops.ptr(new0), ops.ptr(bounds), ops.ptr(offs),
+                ops.ptr(flat[row:]), width, level,
+                ops.ptr(_arrivals(new0.device, stream)), stream),
+                "merkle_wave_tiled")
+            ops.count("merkle_wave_tiled")
         else:
             ops.checked(lib.merkle_wave_launch(
-                ops.ptr(cur), ops.ptr(bounds), ops.ptr(offs),
+                ops.ptr(new0), ops.ptr(bounds), ops.ptr(offs),
                 ops.ptr(flat[row:]), width, level, stream), "merkle_wave")
             ops.count("merkle_wave")
     return flat

@@ -15,6 +15,7 @@ import torch
 
 from plenum_tpu.ops import sha256 as ref
 from plenum_tpu_torch import ops
+from plenum_tpu_torch.ledger.tree_hasher import TorchTreeHasher
 from plenum_tpu_torch.ops import sha256 as port
 
 
@@ -116,31 +117,133 @@ def test_merkle_wave_wide_matches_jax(n, kind):
 
 @pytest.mark.parametrize("log_n", range(1, 19))
 def test_wave_plan_covers_every_parent_once(log_n):
-    """Wide levels one launch each, then one k_merkle_wave for the rest:
-    1 launch up to 1,024 leaves, 2 at 2,048, 7 at 65,536, 9 at 262,144;
-    the launches' parent rows cover the flat output's N - 1 rows once."""
+    """One launch at every N up to 2^20: k_merkle_wave up to 1,024
+    leaves, k_merkle_wave_tiled beyond; its parent rows cover the flat
+    output's N - 1 rows once."""
     n = 1 << log_n
     plan = port.wave_plan(n)
-    kinds = [k for k, _, _, _ in plan]
-    assert kinds == ["level"] * (len(plan) - 1) + ["wave"]
-    assert len(plan) == max(1, log_n - 9)
-    assert len(plan) == {1024: 1, 2048: 2, 65536: 7, 262144: 9}.get(n, len(plan))
-    covered = []
-    for i, (kind, level, width, row) in enumerate(plan):
-        assert width == n >> level and row == n - width
-        assert level == i
-        if kind == "level":
-            assert width // 2 > port.WAVE_THREADS
-            covered.append((row, row + width // 2))
-        else:
-            assert width // 2 <= port.WAVE_THREADS
-            covered.append((row, n - 1))
-    assert covered[0][0] == 0 and covered[-1][1] == n - 1
-    assert all(a[1] == b[0] for a, b in zip(covered, covered[1:]))
+    assert len(plan) == 1
+    kind, level, width, row = plan[0]
+    assert kind == ("wave" if n <= 2 * port.WAVE_THREADS else "tiled")
+    assert (level, width, row) == (0, n, 0)
     rows = port.wave_rows(n)
     assert len(rows) == log_n and rows[0] == (0, n // 2)
     assert rows[-1] == (n - 2, n - 1)
     assert sum(b - a for a, b in rows) == n - 1
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+
+
+@pytest.mark.parametrize("log_n", range(19, 23))
+def test_wave_plan_refuses_beyond_the_tiled_kernel(log_n):
+    """Up to TILED_MAX (2^20) one k_merkle_wave_tiled launch; a wider
+    wave is refused, and the device tree hasher declines it, so the
+    ledger hashes it level by level."""
+    n = 1 << log_n
+    if n <= port.TILED_MAX:
+        assert port.wave_plan(n) == (("tiled", 0, n, 0),)
+        return
+    with pytest.raises(ValueError, match="one launch"):
+        port.wave_plan(n)
+    hasher = TorchTreeHasher(min_batch=1024, device="cpu")
+    assert hasher.hash_wave_levels([bytes(32)] * n, [None] * log_n,
+                                   [0] * log_n, [n >> 1]) is None
+
+
+@pytest.mark.parametrize("log_n", range(11, 19))
+@pytest.mark.parametrize("kind", ["zeros", "ones", "alternating", "random"])
+def test_wave_tiles_own_every_parent_once(log_n, kind):
+    """The tiled wave's decomposition (ops/sha256.py's mirror of
+    csrc/sha256.cu tile_parents): N/1024 + 1 tiles of at most 512
+    level-0 parents; at each of the tiles' levels their parent ranges
+    cover the level's window once, in order; every child a tile reads is
+    its own node of the level below (level 0: a row of new0) or the
+    level's bound, and the bound only where offs[l] is 1; the top's input
+    is the n/1024 nodes of the tiles' last level."""
+    n, depth, tl = 1 << log_n, log_n, port.TILE_LEVELS
+    offs = _offs_pattern(kind, depth)
+    base = port.wave_base(offs)
+    assert base == sum(o << l for l, o in enumerate(offs))
+    tiles = port.tile_blocks(n, base)
+    assert len(tiles) == n // 1024 + 1 and tiles.start == base >> tl
+    for level in range(tl):
+        f_in, f_out = base >> level, base >> (level + 1)
+        ranges = [port.tile_parents(n, base, q, level) for q in tiles]
+        spans = [r for r in ranges if len(r)]
+        assert spans[0].start == f_out
+        assert spans[-1].stop == f_out + (n >> (level + 1))
+        assert all(a.stop == b.start for a, b in zip(spans, spans[1:]))
+        for q, r in zip(tiles, ranges):
+            s = port.WAVE_THREADS >> level
+            assert len(r) <= s
+            if not len(r):
+                continue
+            assert q * s <= r.start and r.stop <= (q + 1) * s
+            lo, hi = 2 * r.start, 2 * r.stop          # children [lo, hi)
+            if lo == f_in - 1:                        # the bound
+                assert offs[level] == 1
+                lo += 1
+            assert f_in <= lo and hi <= f_in + (n >> level)
+            if level:
+                own = port.tile_parents(n, base, q, level - 1)
+                assert own.start <= lo and hi <= own.stop
+    last = [port.tile_parents(n, base, q, tl - 1) for q in tiles]
+    assert sum(len(r) for r in last) == n >> tl
+    assert all(len(r) <= 1 for r in last)
+
+
+def _tiled_wave_hashlib(new0, bounds, offs):
+    """A wave hashed with hashlib the way k_merkle_wave_tiled splits it:
+    each tile from its own nodes (a dict per tile, so a read of another
+    tile's node raises KeyError), every parent stored once, then the top
+    levels by the reference's pairing. -> per level, its digests."""
+    n, tl = len(new0), port.TILE_LEVELS
+    base = port.wave_base(offs)
+    levels = [[None] * (n >> (level + 1)) for level in range(len(offs))]
+
+    def h(l, r):
+        return hashlib.sha256(b"\x01" + l + r).digest()
+    for q in port.tile_blocks(n, base):
+        own = {}
+        for level in range(tl):
+            f_in, f_out = base >> level, base >> (level + 1)
+            for a in port.tile_parents(n, base, q, level):
+                kids = [bounds[level] if c == f_in - 1
+                        else new0[c - base] if level == 0
+                        else own[level - 1, c] for c in (2 * a, 2 * a + 1)]
+                own[level, a] = h(*kids)
+                assert levels[level][a - f_out] is None
+                levels[level][a - f_out] = own[level, a]
+    for level in range(tl, len(offs)):
+        cur = levels[level - 1]
+        shifted = ([bounds[level]] + cur)[:len(cur)] if offs[level] else cur
+        levels[level] = [h(shifted[2 * j], shifted[2 * j + 1])
+                         for j in range(len(cur) // 2)]
+    return levels
+
+
+_WAVE_4096 = np.random.default_rng(4096)
+_NEW_4096, _BOUNDS_12 = _words(_WAVE_4096, 4096, 8), _words(_WAVE_4096, 12, 8)
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("kind", ["zeros", "ones", "alternating", "random"])
+def test_tiled_wave_mirror_matches_jax(n, kind):
+    """The tile decomposition, hashed with hashlib, against the JAX
+    merkle_wave and the plain version, every level bit for bit."""
+    depth = n.bit_length() - 1
+    new0, bounds = _NEW_4096[:n], _BOUNDS_12[:depth]
+    offs = _offs_pattern(kind, depth)
+    got = _tiled_wave_hashlib(port.digests_to_bytes(new0),
+                              port.digests_to_bytes(bounds), offs)
+    offs_np = np.array(offs, dtype=np.int32)
+    want = ref.merkle_wave(jnp.asarray(new0), jnp.asarray(bounds),
+                           jnp.asarray(offs_np))
+    plain = port.merkle_wave_torch(_t(new0), _t(bounds),
+                                   torch.from_numpy(offs_np))
+    assert len(got) == len(want) == len(plain) == depth
+    for g, w, p in zip(got, want, plain):
+        assert g == port.digests_to_bytes(np.asarray(w))
+        assert np.array_equal(_u32(p), np.asarray(w))
 
 
 def test_merkle_reduce_pow2_matches_jax_and_host():
@@ -205,6 +308,7 @@ def test_cpu_tensors_take_the_plain_versions():
     port.sha256_words(_t(_words(rng, 2, 16)))
     port.merkle_wave(x, x[:2], torch.zeros(2, dtype=torch.int32))
     port.merkle_wave_flat(x, x[:2], torch.zeros(2, dtype=torch.int32))
+    port.merkle_reduce_pow2(x)
     assert ops.LAUNCHES == before
 
 
@@ -236,9 +340,10 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [2, 512, 1024, 65536])
+@pytest.mark.parametrize("n", [2, 512, 1024, 65536, 262144])
 def test_merkle_reduce_kernel_matches_plain_version(cuda_device, n):
-    """K7: one launch up to 512 leaves, two beyond (to 262,144)."""
+    """K7: one launch up to 512 leaves, then one more on the block roots
+    (two up to 262,144 leaves)."""
     leaves = _words(np.random.default_rng(n), n, 8)
     before = ops.LAUNCHES["merkle_reduce"]
     got = port.merkle_reduce_pow2(port.to_tensor(leaves, cuda_device))
@@ -246,29 +351,52 @@ def test_merkle_reduce_kernel_matches_plain_version(cuda_device, n):
     assert torch.equal(got.cpu(), port.merkle_reduce_pow2(_t(leaves)))
 
 
-
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [2, 32, 1024, 2048, 65536])
+@pytest.mark.parametrize("n", [2, 32, 1024, 2048, 4096, 65536, 262144])
 def test_merkle_wave_kernel_matches_plain_version(cuda_device, n):
-    """K2's wave: one k_merkle_wave launch up to 1,024 leaves, after one
-    k_merkle_level launch per level wider than its block beyond."""
+    """K2's wave: one k_merkle_wave launch up to 1,024 leaves, one
+    k_merkle_wave_tiled launch beyond, no k_merkle_level launch."""
     depth = n.bit_length() - 1
     rng = np.random.default_rng(n)
     new0, bounds = _words(rng, n, 8), _words(rng, depth, 8)
+    tiled = n > 2 * port.WAVE_THREADS
     for kind in ("zeros", "ones", "alternating", "random"):
         offs = np.array(_offs_pattern(kind, depth), dtype=np.int32)
         before = dict(ops.LAUNCHES)
         got = port.merkle_wave(port.to_tensor(new0, cuda_device),
                                port.to_tensor(bounds, cuda_device),
                                torch.from_numpy(offs).to(cuda_device))
-        assert ops.LAUNCHES["merkle_wave"] - before["merkle_wave"] == 1
-        assert ops.LAUNCHES["sha256_interior"] - before["sha256_interior"] \
-            == max(0, depth - 10)
+        assert {k: ops.LAUNCHES[k] - before[k] for k in
+                ("merkle_wave", "merkle_wave_tiled", "sha256_interior")} \
+            == {"merkle_wave": int(not tiled), "merkle_wave_tiled": int(tiled),
+                "sha256_interior": 0}
         want = port.merkle_wave_torch(_t(new0), _t(bounds),
                                       torch.from_numpy(offs))
         assert len(got) == len(want) == depth
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_tiled_waves_back_to_back(cuda_device):
+    """The tiled wave's arrival counter on one stream: waves at
+    alternating sizes, queued with no synchronize between them, each
+    equal to its plain version (a counter left off 0 would elect no last
+    block, or the wrong one)."""
+    rng = np.random.default_rng(77)
+    got, want = [], []
+    for n in (65536, 2048, 262144, 1024, 65536):
+        depth = n.bit_length() - 1
+        leaves, bounds = _words(rng, n, 8), _words(rng, depth, 8)
+        offs = rng.integers(0, 2, depth).astype(np.int32)
+        got.append(port.merkle_wave_flat(
+            port.to_tensor(leaves, cuda_device),
+            port.to_tensor(bounds, cuda_device),
+            torch.from_numpy(offs).to(cuda_device)))
+        want.append(port.merkle_wave_flat(_t(leaves), _t(bounds),
+                                          torch.from_numpy(offs)))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.gpu
