@@ -38,7 +38,25 @@ drives the port's paths on the card:
      digests, by step_bytes and step; then graft_entry.dryrun_multichip(4).
      Verdicts must be exactly the expected ones and roots hashlib's;
   4. path C, the field-chain probe: x^(2^64) over 2,048 columns;
-  5. times: per kernel, the median of CUDA-event-timed launches after
+  5. path D, the device ring (slice 6): make_crypto_pipeline(
+     Config(PIPELINE_SHA_MIN_BATCH=512), "cuda") shared by four co-hosted
+     replicas, as the reference pool wires it: each replica's CoreAuthNr
+     on pipe.verifier(), its domain ledger (100,003 txns) on
+     pipe.tree_hasher(). After prewarm, one unmeasured batch and pin(),
+     5 batches of 1,000 fresh requests (8 corrupted): every replica
+     authenticates, stages its txns with deferred hashing, one
+     CommitWave drains the four ledgers, every replica commits. Each
+     batch must give the expected verdicts on every replica, roots equal
+     to each other and to a hashlib ledger's, proofs that verify, one
+     Ed25519 wave, at least 3,000 dedup hits, no unpinned shape, nothing
+     routed off the card by the supervisor, and exactly K3 = K4 = 1, K1 =
+     2 per SHA-256 block count of the leaves and 8 k_merkle_wave
+     launches; then one batch (after its own warm-up) on "cuda-sharded".
+     Per batch it prints the wall time, the device busy time
+     (torch.profiler), launches, waves, dedup and pad share, beside
+     slice 1's single-replica batch wall. The dummy lanes of the
+     prewarm are held to False on K3 + K4 first;
+  6. times: per kernel, the median of CUDA-event-timed launches after
      warm-up, its plain version's time, and its bound on this card (K3-K6,
      one quad of four threads per item, at 32, 64 and 128 threads per
      block, each result held to the default's; the plane's steps also
@@ -53,6 +71,9 @@ drives the port's paths on the card:
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails if a kernel of that path was never launched.
+The card's verifiers are bare (a fault raises), but for path D's ring,
+which is supervised as the reference pool wires it: that path fails if
+the supervisor fell back to the CPU, hedged, or saw a device error.
 Prints JSON lines (kernels, paths, device) and, last, one JSON object
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Imports nothing of JAX.
@@ -68,10 +89,12 @@ checkout times that checkout's kernels, so two trees compare in one call.
 """
 from __future__ import annotations
 
+import cProfile
 import hashlib
 import importlib.util
 import json
 import os
+import pstats
 import re
 import shutil
 import statistics
@@ -272,6 +295,7 @@ def main() -> int:
     from plenum_tpu_torch import graft_entry, ops
     from plenum_tpu_torch.common.request import Request
     from plenum_tpu_torch.common.serialization import pack
+    from plenum_tpu_torch.config import Config
     from plenum_tpu_torch.convert import ledger_from_rows
     from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer, make_verifier
     from plenum_tpu_torch.execution.txn import NYM, new_txn
@@ -286,7 +310,10 @@ def main() -> int:
     from plenum_tpu_torch.ops.field_chain import field_chain, field_chain_torch
     from plenum_tpu_torch.parallel.crypto_plane import (
         ShardedCryptoPlane, ShardedTorchEd25519Verifier)
+    from plenum_tpu_torch.parallel.commit_wave import CommitWave
     from plenum_tpu_torch.parallel.mesh import lane_roster, make_mesh
+    from plenum_tpu_torch.parallel.pipeline import make_crypto_pipeline
+    from plenum_tpu_torch.parallel.supervisor import find_supervisor
     from plenum_tpu_torch.utils.base58 import b58decode, b58encode
 
     dev = torch.device("cuda")
@@ -331,6 +358,22 @@ def main() -> int:
             raise AssertionError(f"{kernel} disagrees with its plain version "
                                  f"(max abs err {err})")
 
+    def require_nothing_off_card(path: str, verifier) -> None:
+        """Fail unless the plane supervisor routed nothing of the path
+        away from the card: no CPU fallback, hedge, device error or
+        deadline miss, no verdict fork, the breaker closed."""
+        sup = find_supervisor(verifier)
+        if sup is None:
+            raise AssertionError(f"{path}: no plane supervisor in the chain")
+        hidden = {k_: sup.stats[k_] for k_ in (
+            "fallback_batches", "hedge_wins", "open_circuit_fallbacks",
+            "backpressure_fallbacks", "device_errors", "deadline_misses",
+            "verdict_forks") if sup.stats[k_]}
+        if hidden or sup.breaker.state != "closed":
+            raise AssertionError(f"{path}: the supervisor routed work off "
+                                 f"the card: {hidden}, breaker "
+                                 f"{sup.breaker.state}")
+
     def signer(i: int) -> Ed25519Signer:
         return Ed25519Signer(hashlib.sha256(b"chip-smoke-did-%d" % i).digest())
 
@@ -345,26 +388,35 @@ def main() -> int:
     t0 = time.perf_counter()
     n_req = 1000
     signers = [signer(i) for i in range(n_req)]
-    reqs = [nym_request(s, i + 1) for i, s in enumerate(signers)]
-    expect = np.ones(n_req, dtype=bool)
-    bad = [int(i) for i in rng.choice(n_req, size=8, replace=False)]
-    for k, i in enumerate(bad):
-        r, s = reqs[i], signers[i]
-        if k < 3:       # one bit of the signature flipped
-            sig = bytearray(b58decode(r.signature))
-            sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
-            r.signature = b58encode(bytes(sig))
-        elif k < 5:     # operation changed after signing
-            forged = Request(identifier=r.identifier, req_id=r.req_id,
-                             operation={**r.operation, "role": "0"})
-            forged.signature = r.signature
-            reqs[i] = forged
-        elif k < 7:     # signed by another key
-            r.signature = signers[(i + 1) % n_req].sign_b58(r.signing_bytes())
-        else:           # S >= L
-            sig = b58decode(r.signature)
-            r.signature = b58encode(sig[:32] + (ed.L + 7).to_bytes(32, "little"))
-        expect[i] = False
+
+    def signed_batch(first_id: int):
+        """n_req NYM requests, one from each DID, req_ids from first_id,
+        8 of them corrupted -> (requests, expected verdicts)."""
+        reqs = [nym_request(s, first_id + i) for i, s in enumerate(signers)]
+        expect = np.ones(n_req, dtype=bool)
+        bad = [int(i) for i in rng.choice(n_req, size=8, replace=False)]
+        for k, i in enumerate(bad):
+            r, s = reqs[i], signers[i]
+            if k < 3:       # one bit of the signature flipped
+                sig = bytearray(b58decode(r.signature))
+                sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+                r.signature = b58encode(bytes(sig))
+            elif k < 5:     # operation changed after signing
+                forged = Request(identifier=r.identifier, req_id=r.req_id,
+                                 operation={**r.operation, "role": "0"})
+                forged.signature = r.signature
+                reqs[i] = forged
+            elif k < 7:     # signed by another key
+                r.signature = signers[(i + 1) % n_req].sign_b58(
+                    r.signing_bytes())
+            else:           # S >= L
+                sig = b58decode(r.signature)
+                r.signature = b58encode(sig[:32]
+                                        + (ed.L + 7).to_bytes(32, "little"))
+            expect[i] = False
+        return reqs, expect
+
+    reqs, expect = signed_batch(1)
     verkeys = {s.identifier: s.verkey_b58 for s in signers}
     sign_s = time.perf_counter() - t0
 
@@ -477,6 +529,7 @@ def main() -> int:
             b = bytearray(msg); b[int(rng.integers(len(b)))] ^= bit; msg = bytes(b)
         items.append((msg, sig, vk))
         want4.append(kind == 0 or kind >= 5)
+    # bare verifiers for the kernel checks: they stage and poke internals
     verifier = make_verifier("cuda")
     idxs4, staged4 = verifier.stage_bytes(items)
     s_u8, h_u8, k_u8, idx4, r_u8 = staged4
@@ -739,6 +792,7 @@ def main() -> int:
     ops.reset_counts()
     torch.cuda.synchronize()
     t_sharded = time.perf_counter()
+    # bare: the path switches its dispatch and reads its key cache
     sharded = make_verifier("cuda-sharded")
     authnr_s = ReqAuthenticator()
     authnr_s.register_authenticator(
@@ -816,6 +870,304 @@ def main() -> int:
     for j in range(4):
         if ed.limbs_to_int(chain_host[:, j]) != pow(chain_vals[j], 2**64, ed.P):
             raise AssertionError("field_chain disagrees with Python's pow")
+
+    # --- path D: the device ring, four co-hosted replicas (slice 6) -------
+    # the reference pool's crypto wiring (node/bootstrap.py): one ring, its
+    # verifier behind every replica's CoreAuthNr and its tree hasher behind
+    # every replica's domain ledger; staged leaves drained by one commit
+    # wave per batch
+    def batch_device(fn):
+        """fn() under torch.profiler (CUDA activity only) -> (its result,
+        wall ms, device busy ms, device ms by name); the busy time is a
+        string saying why where the profiler cannot trace the card."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        names: dict[str, float] = {}
+        for ev in prof_.events():
+            if ev.device_type == DeviceType.CUDA:
+                names[ev.name] = (names.get(ev.name, 0.0)
+                                  + ev.time_range.elapsed_us() / 1e3)
+        busy = sum(names.values()) if names else \
+            "not measured: the profiler traced nothing"
+        return out, wall, busy, names
+
+    n_rep = 4
+    ring_cfg = Config(PIPELINE_SHA_MIN_BATCH=512)
+
+    def ring_setup(backend: str, ledgers=None):
+        """The ring, four replicas' authenticators and domain ledgers (from
+        the 100,003-txn rows, or continuing `ledgers`' stores)."""
+        # supervised, as the reference pool wires its ring; opted into on
+        # the card, so every counter of the supervisor is checked below
+        pipe = make_crypto_pipeline(ring_cfg, backend, supervised=True)
+        authns = []
+        for _ in range(n_rep):
+            a = ReqAuthenticator()
+            a.register_authenticator(CoreAuthNr(verifier=pipe.verifier(),
+                                                get_verkey=verkeys.get))
+            authns.append(a)
+        if ledgers is None:
+            leds = [ledger_from_rows(txn_rows, hash_rows, pipe.tree_hasher())
+                    for _ in range(n_rep)]
+        else:
+            leds = [Ledger(tree=CompactMerkleTree(pipe.tree_hasher(),
+                                                  led.tree.hash_store),
+                           txn_log=led.txn_log) for led in ledgers]
+        return pipe, authns, leds
+
+    def ring_batch(pipe, authns, leds, breqs):
+        """One batch on the four replicas: authenticate, stage with
+        deferred hashing, one commit wave over the four ledgers, commit.
+        -> (verdicts per replica, txns, the wave's roots, merkle infos,
+        host ms per phase)."""
+        t = [time.perf_counter()]
+        verdicts_r = [a.authenticate_batch(breqs) for a in authns]
+        btxns = [new_txn(NYM, dict(r.operation), request=r)
+                 for r, ok in zip(breqs, verdicts_r[0]) if ok]
+        t.append(time.perf_counter())
+        for led in leds:
+            led.append_txns_to_uncommitted(btxns, defer_hash=True)
+        wave = CommitWave(pipe)
+        for j, led in enumerate(leds):
+            wave.add(f"domain{j}", led.uncommitted_root_staged())
+        roots_w = wave.run()
+        t.append(time.perf_counter())
+        infos_r = [led.commit_txns(len(btxns))[1] for led in leds]
+        t.append(time.perf_counter())
+        return verdicts_r, btxns, roots_w, infos_r, phase_ms(t)
+
+    def phase_ms(t) -> dict:
+        return {ph: (b_ - a_) * 1e3 for ph, a_, b_ in zip(
+            ("authenticate", "stage_and_root", "commit"), t, t[1:])}
+
+    def solo_batch(authns, leds, breqs):
+        """The same batch on four replicas that share nothing: slice 1's
+        path on each (its own bare verifier and device tree
+        hasher, eager staging) -> as ring_batch, the roots per replica."""
+        t = [time.perf_counter()]
+        verdicts_r = [a.authenticate_batch(breqs) for a in authns]
+        btxns = [new_txn(NYM, dict(r.operation), request=r)
+                 for r, ok in zip(breqs, verdicts_r[0]) if ok]
+        t.append(time.perf_counter())
+        roots = {f"domain{j}": led.append_txns_to_uncommitted(btxns)[0]
+                 for j, led in enumerate(leds)}
+        t.append(time.perf_counter())
+        infos_r = [led.commit_txns(len(btxns))[1] for led in leds]
+        t.append(time.perf_counter())
+        return verdicts_r, btxns, roots, infos_r, phase_ms(t)
+
+    def ring_check(what, pipe, leds, ring_ref, bexpect, out, before):
+        """The per-batch checks: verdicts, roots against each other and
+        hashlib's, a proof per replica, one wave, the dedup, no unpinned
+        shape, nothing routed off the card."""
+        verdicts_r, btxns, roots_w, infos_r, _ = out
+        for v in verdicts_r:
+            if v.tolist() != bexpect.tolist():
+                raise AssertionError(f"{what}: a replica's verdicts differ "
+                                     f"from the expected ones")
+        ring_ref.append_batch(btxns)
+        roots = {led.root_hash for led in leds} | set(roots_w.values())
+        if roots != {ring_ref.root_hash} or \
+                {led.size for led in leds} != {ring_ref.size}:
+            raise AssertionError(f"{what}: the replicas' roots differ from "
+                                 f"each other or from the hashlib ledger's")
+        for led, infos in zip(leds, infos_r):
+            k_ = int(rng.integers(len(btxns)))
+            path_ = [bytes.fromhex(h) for h in infos[k_]["auditPath"]]
+            if not MerkleVerifier().verify_inclusion(
+                    txn_to_leaf(btxns[k_]), infos[k_]["seqNo"] - 1, led.size,
+                    path_, led.root_hash):
+                raise AssertionError(f"{what}: inclusion proof fails")
+        if pipe is None:
+            return None
+        got = {k_: pipe.stats[k_] - before[k_] for k_ in pipe.stats}
+        if got["dispatches"] != 1 or got["dedup_hits"] < 3 * n_req \
+                or pipe.stats["unpinned_shapes"] != 0:
+            raise AssertionError(
+                f"{what}: {got['dispatches']} Ed25519 waves (want 1), "
+                f"{got['dedup_hits']} dedup hits (want >= {3 * n_req}), "
+                f"{pipe.stats['unpinned_shapes']} unpinned shapes")
+        require_nothing_off_card(what, pipe.verifier())
+        return got
+
+    def ring_warm(pipe, authns, leds, ring_ref, first_id):
+        """Prewarm the batch's bucket (dummy lanes: every verdict False),
+        run one unmeasured batch, which notes the shapes the prewarm does
+        not (the full key table, the SHA-256 block counts, the commit
+        level, the fused wave), then pin."""
+        if pipe.prewarm([1024]) != [1024]:
+            raise AssertionError("ring prewarm did not warm bucket 1024")
+        wreqs, wexpect = signed_batch(first_id)
+        before = dict(pipe.stats)
+        ring_check("ring warm-up", pipe, leds, ring_ref, wexpect,
+                   ring_batch(pipe, authns, leds, wreqs), before)
+        pipe.pin()
+
+    # the prewarm's dummy lanes: K3 + K4 give False, as the plain versions
+    dummy = [(b"pipeline-prewarm", b"\x00" * 64, b"\x00" * 32)] * 4
+    _, (s_d, h_d, k_d, ix_d, r_d) = verifier.stage_bytes(dummy)
+    ok_d = ed.verify_kernel_bytes(s_d, h_d, k_d, ix_d, r_d)
+    bit_equal("ed25519_verify", ok_d, ed.verify_kernel_bytes_torch(
+        s_d, h_d, k_d, ix_d, r_d))
+    if ok_d.any():
+        raise AssertionError("the prewarm's dummy lanes verify on the card")
+
+    t_ring0 = time.perf_counter()
+    ring_ref = ledger_from_rows(txn_rows, hash_rows, TreeHasher())
+    pipe, authns, leds = ring_setup("cuda")
+    ring_warm(pipe, authns, leds, ring_ref, 10_001)
+    ring_setup_s = time.perf_counter() - t_ring0
+    ring_batches = []
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    for b in range(5):
+        breqs, bexpect = signed_batch(20_001 + 1000 * b)
+        before, counts0 = dict(pipe.stats), dict(ops.LAUNCHES)
+        out, wall, busy, by_name = batch_device(
+            lambda: ring_batch(pipe, authns, leds, breqs))
+        counts = {k_: ops.LAUNCHES[k_] - counts0[k_] for k_ in ops.LAUNCHES}
+        got = ring_check(f"ring batch {b}", pipe, leds, ring_ref, bexpect,
+                         out, before)
+        # K3 + K4 once for the four replicas' wave; K1 once per SHA-256
+        # block count of the batch's leaves for the commit wave's one
+        # deduped level and once for the first replica's commit (the other
+        # three hit the ring's digest cache); one k_merkle_wave per
+        # replica for the wave's shadow and one for its commit
+        groups = len({sha.n_blocks_for(len(txn_to_leaf(t)) + 1)
+                      for t in out[1]})
+        want = {k_: 0 for k_ in ops.LAUNCHES}
+        want.update(ed25519_decompress=1, ed25519_verify=1,
+                    sha256_words=2 * groups, merkle_wave=2 * n_rep)
+        if counts != want:
+            raise AssertionError(f"ring batch {b}: launches {counts}, "
+                                 f"want {want}")
+        ring_batches.append({
+            "wall_ms_4_replicas": wall, "host_ms_by_phase": out[4],
+            "device_busy_ms": busy,
+            "device_ms_by_name": by_name, "launches": counts,
+            "ed_dispatches": got["dispatches"],
+            "dedup_hits": got["dedup_hits"],
+            "dedup_ratio": got["dedup_hits"] / got["submitted_items"],
+            "cache_hits": got["cache_hits"],
+            "wave_items": got["dispatched_items"], "pad_items": got["pad_items"],
+            "pad_share": got["pad_items"] / (got["dispatched_items"]
+                                             + got["pad_items"]),
+            "sha_unique": got["sha_unique"], "cmt_unique": got["cmt_unique"],
+            "accepted": int(bexpect.sum())})
+    ring_counts = dict(ops.LAUNCHES)
+    require_launched("ring", ring_counts,
+                     ("sha256_words", "merkle_wave", "ed25519_decompress",
+                      "ed25519_verify"))
+    # where a ring batch's host time goes: one more batch under cProfile
+    # (which slows every Python call, so read shares, not times)
+    breqs, bexpect = signed_batch(25_001)
+    before = dict(pipe.stats)
+    host_prof = cProfile.Profile()
+    out = host_prof.runcall(ring_batch, pipe, authns, leds, breqs)
+    ring_check("ring batch under cProfile", pipe, leds, ring_ref, bexpect,
+               out, before)
+    by_fn = pstats.Stats(host_prof).stats
+    by_file: dict[str, float] = {}
+    for (path_, _, _), (_, _, tot, _, _) in by_fn.items():
+        key = path_[path_.find("plenum_tpu_torch/"):] \
+            if "plenum_tpu_torch/" in path_ else \
+            "builtins" if path_ == "~" else path_.split("site-packages/")[-1]
+        by_file[key] = by_file.get(key, 0.0) + tot * 1e3
+    host_profile = {
+        "profiled_ms": sum(by_file.values()),
+        "tottime_ms_by_file": dict(sorted(by_file.items(),
+                                          key=lambda kv: -kv[1])[:15]),
+        "top_functions": [
+            {"function": f"{os.path.basename(f_)}:{ln}:{name}",
+             "calls": v[1], "tottime_ms": v[2] * 1e3,
+             "cumtime_ms": v[3] * 1e3}
+            for (f_, ln, name), v in sorted(by_fn.items(),
+                                            key=lambda kv: -kv[1][2])[:20]]}
+    ring_summary = pipe.summary()
+    ring_sup = find_supervisor(pipe.verifier()).supervisor_stats()
+    # the same four replicas sharing nothing, from the same ledger state
+    # (what the ring's dedup saves): K3 + K4 and slice 1's SHA-256
+    # launches once per replica
+    solo_authns, solo_leds = [], []
+    for _ in range(n_rep):
+        a = ReqAuthenticator()
+        a.register_authenticator(CoreAuthNr(verifier=make_verifier("cuda"),
+                                            get_verkey=verkeys.get))
+        solo_authns.append(a)
+        solo_leds.append(ledger_from_rows(
+            txn_rows, hash_rows,
+            make_tree_hasher("cuda", min_batch=512, fuse_min=512)))
+    solo_ref = ledger_from_rows(txn_rows, hash_rows, TreeHasher())
+    solo_batches = []
+    ops.reset_counts()
+    for b in range(5):
+        breqs, bexpect = signed_batch(20_001 + 1000 * b)
+        counts0 = dict(ops.LAUNCHES)
+        out, wall, busy, _ = batch_device(
+            lambda: solo_batch(solo_authns, solo_leds, breqs))
+        counts = {k_: ops.LAUNCHES[k_] - counts0[k_] for k_ in ops.LAUNCHES}
+        ring_check(f"solo batch {b}", None, solo_leds, solo_ref, bexpect,
+                   out, None)
+        groups = len({sha.n_blocks_for(len(txn_to_leaf(t)) + 1)
+                      for t in out[1]})
+        want = {k_: 0 for k_ in ops.LAUNCHES}
+        want.update(ed25519_decompress=n_rep, ed25519_verify=n_rep,
+                    sha256_words=2 * groups * n_rep, merkle_wave=2 * n_rep)
+        if counts != want:
+            raise AssertionError(f"solo batch {b}: launches {counts}, "
+                                 f"want {want}")
+        solo_batches.append({"wall_ms_4_replicas": wall,
+                             "host_ms_by_phase": out[4],
+                             "device_busy_ms": busy, "launches": counts})
+    solo_counts = dict(ops.LAUNCHES)
+    # the sharded inner: one more measured batch, the same checks
+    t_rs = time.perf_counter()
+    pipe_s, authns_s, leds_s = ring_setup("cuda-sharded", leds)
+    ring_warm(pipe_s, authns_s, leds_s, ring_ref, 30_001)
+    breqs, bexpect = signed_batch(40_001)
+    ops.reset_counts()
+    before = dict(pipe_s.stats)
+    out, wall_s, busy_s, by_name_s = batch_device(
+        lambda: ring_batch(pipe_s, authns_s, leds_s, breqs))
+    ring_sharded_counts = dict(ops.LAUNCHES)
+    got_s = ring_check("ring batch, cuda-sharded", pipe_s, leds_s, ring_ref,
+                       bexpect, out, before)
+    shards = find_supervisor(pipe_s.verifier())._device._plane.mesh.size
+    groups = len({sha.n_blocks_for(len(txn_to_leaf(t)) + 1) for t in out[1]})
+    want = {k_: 0 for k_ in ops.LAUNCHES}
+    # per shard K3 + K4; K7 only over more than one shard's root (each
+    # shard's one zero leaf is its root)
+    want.update(ed25519_decompress=shards, ed25519_verify=shards,
+                merkle_reduce=int(shards > 1), sha256_words=2 * groups,
+                merkle_wave=2 * n_rep)
+    if ring_sharded_counts != want:
+        raise AssertionError(f"ring batch, cuda-sharded: launches "
+                             f"{ring_sharded_counts}, want {want}")
+    print(json.dumps({"ring_path": {
+        "replicas": n_rep, "requests_per_batch": n_req,
+        "ledger_size_before": n_pre, "ledger_size_after": ring_ref.size,
+        "sha_min_batch": ring_cfg.PIPELINE_SHA_MIN_BATCH,
+        "batches": ring_batches,
+        "slice1_single_replica_batch_wall_ms": (t_commit - t_main) * 1e3,
+        "launches": ring_counts, "summary": ring_summary,
+        "host_profile_one_batch": host_profile,
+        "four_replicas_without_ring": {"batches": solo_batches,
+                                       "launches": solo_counts},
+        "supervisor": ring_sup, "setup_s": ring_setup_s,
+        "sharded": {"shards": shards, "wall_ms_4_replicas": wall_s,
+                    "device_busy_ms": busy_s, "device_ms_by_name": by_name_s,
+                    "launches": ring_sharded_counts,
+                    "ed_dispatches": got_s["dispatches"],
+                    "dedup_ratio": got_s["dedup_hits"]
+                    / got_s["submitted_items"],
+                    "pad_items": got_s["pad_items"],
+                    "setup_s": time.perf_counter() - t_rs}}}))
 
     # --- phase 3: times at the slice's shapes ------------------------------
     # the 1,000-request batch's own inputs
@@ -988,7 +1340,8 @@ def main() -> int:
          {"columns": 2048, "k": 64, "launches_per_call": 1}),
     ]
     path_counts = {"slice": main_counts, "sharded": sharded_counts,
-                   "probe": probe_counts}
+                   "probe": probe_counts, "ring": ring_counts,
+                   "ring_sharded": ring_sharded_counts}
     path_of = {"K1": "slice", "K2": "slice", "K2T": "slice", "K2L": "slice",
                "K3": "slice",
                "K4": "slice", "K5": "sharded", "K6": "sharded",
@@ -1074,7 +1427,9 @@ def main() -> int:
             "ms_by_threads_per_block": by_block,
             "path": path_of[kid],
             "launches_by_path": {p_: c_[name] for p_, c_ in path_counts.items()},
-            "launches_per_1000_txn_batch": batch_counts[name], "shape": shape,
+            "launches_per_1000_txn_batch": batch_counts[name],
+            "launches_per_ring_batch": ring_batches[0]["launches"][name],
+            "shape": shape,
             **sha_times})
     by_id = {k_["id"]: k_ for k_ in kernels}
     # the inversion's share of K4: 254 squarings in lock-step on each of

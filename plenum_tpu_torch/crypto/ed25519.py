@@ -657,7 +657,8 @@ class CoalescingVerifier(Ed25519Verifier):
         return self.collect_batch(self.submit_batch(items), wait=True)
 
 
-def make_verifier(backend: str = "cuda") -> Ed25519Verifier:
+def make_verifier(backend: str = "cuda", min_batch: int = 1,
+                  supervised: Optional[bool] = None) -> Ed25519Verifier:
     """The verifier for a backend name:
 
       "cuda"          the kernels on the card (the default); raises
@@ -672,22 +673,44 @@ def make_verifier(backend: str = "cuda") -> Ed25519Verifier:
                       pure-Python RFC 8032 verifier where `cryptography`
                       is absent
 
-    The sharded backends pad every batch to a power of two, so that it
-    tiles their mesh. The device verifiers come bare: no supervisor and
-    no CPU breaker — a failed launch raises instead of degrading
-    silently."""
+    min_batch: the sharded backends pad every batch to at least this
+    power of two (and to one that tiles their mesh); the single-device
+    ones do not pad and take no min_batch.
+
+    supervised: wrap the verifier in the plane supervisor
+    (parallel/supervisor.py: circuit breaker, hedged dispatch and
+    backpressure, each routing work to the CPU verifier). None, the
+    default, wraps the CPU backends ("torch", "torch-sharded") as the
+    reference wraps its device verifiers, and leaves the card's bare: a
+    failed launch raises instead of turning into CPU verdicts. A caller
+    that opts in on the card must read the supervisor's counters. A cuda
+    verifier finds its device and builds its kernels here, before any
+    wrapping, so a missing card or a failed nvcc build raises from
+    make_verifier, never inside submit_batch."""
     if backend == "cuda":
-        return TorchEd25519Verifier(device="cuda")
-    if backend == "torch":
-        return TorchEd25519Verifier(device="cpu")
-    if backend in ("cuda-sharded", "torch-sharded"):
+        v = TorchEd25519Verifier(device="cuda")
+    elif backend == "torch":
+        v = TorchEd25519Verifier(device="cpu")
+    elif backend in ("cuda-sharded", "torch-sharded"):
         # deferred: parallel/ is not needed by the single-device backends
         from plenum_tpu_torch.parallel.crypto_plane import \
             make_sharded_verifier
-        if backend == "cuda-sharded":
-            return make_sharded_verifier()
-        return make_sharded_verifier(devices=["cpu"] * 4)
-    if backend == "cpu":
+        v = make_sharded_verifier(
+            min_batch=min_batch,
+            devices=None if backend == "cuda-sharded" else ["cpu"] * 4)
+    elif backend == "cpu":
         return CpuEd25519Verifier()
-    raise ValueError(f"unknown Ed25519 backend {backend!r} (want 'cuda', "
-                     "'cuda-sharded', 'torch', 'torch-sharded' or 'cpu')")
+    else:
+        raise ValueError(f"unknown Ed25519 backend {backend!r} (want 'cuda', "
+                         "'cuda-sharded', 'torch', 'torch-sharded' or 'cpu')")
+    on_card = v.device.type == "cuda"
+    if on_card:
+        # build and load now (one nvcc per source, all at once); the
+        # sharded plane also reduces Merkle roots (sha256.cu)
+        names = ("ed25519",) if backend == "cuda" else ("sha256", "ed25519")
+        for name in ops.build(names):
+            ops.lib(name)
+    if supervised is False or (supervised is None and on_card):
+        return v
+    from plenum_tpu_torch.parallel.supervisor import supervise
+    return supervise(v)

@@ -9,7 +9,11 @@ the hash store with txn-log replay as fallback (ledger.py:70-113).
 Device angle: `append_txns_to_uncommitted` stages and `commit_txns` extends
 the tree with ALL the batch's leaves through the hasher's batch API — with
 the cuda backend the leaf hashes are one kernel launch per SHA-256 block
-count and the interior levels one launch per level (ops/sha256.py).
+count and an append wave's interior levels one fused launch (ops/sha256.py
+`merkle_wave`; a wave past its width goes level by level). Staged with
+defer_hash=True, the leaves wait for the commit wave
+(parallel/commit_wave.py), which hashes every co-hosted replica's
+identical leaves once.
 """
 from __future__ import annotations
 
@@ -37,6 +41,12 @@ class Ledger:
         self.seq_no = 0                      # last committed seq_no (1-based)
         self._uncommitted: list[dict] = []   # staged txns
         self._uncommitted_tree: Optional[CompactMerkleTree] = None
+        # txns staged with defer_hash=True: in _uncommitted (and the
+        # shadow's root once hashed) but NOT yet extended into the
+        # shadow tree — the commit wave hashes their leaves in one
+        # fused dispatch (uncommitted_root_staged); the host path folds
+        # them in lazily, so both paths stay byte-identical
+        self._shadow_pending: list[dict] = []
         self.recover()
         if self.size == 0 and genesis_txns:
             for txn in genesis_txns:
@@ -97,13 +107,35 @@ class Ledger:
 
     # --- uncommitted staging (ref appendTxns/commitTxns/discardTxns) ------
 
-    def append_txns_to_uncommitted(self, txns: Sequence[dict]):
-        """Stage txns; returns (uncommitted_root, uncommitted_size)."""
+    def append_txns_to_uncommitted(self, txns: Sequence[dict],
+                                   defer_hash: bool = False):
+        """Stage txns; returns (uncommitted_root, uncommitted_size).
+        With defer_hash=True the leaf hashing is left for the commit
+        wave (`uncommitted_root_staged`) — no root is computed here and
+        None is returned in its place; reading `uncommitted_root_hash`
+        before the wave drains folds the pending leaves in on host, so
+        the deferral can never be observed as a different root."""
+        if defer_hash:
+            self._uncommitted.extend(txns)
+            if self._uncommitted_tree is not None:
+                self._shadow_pending.extend(txns)
+            return None, self.uncommitted_size
         if self._uncommitted_tree is not None:
+            self._fold_shadow_pending()
             # shadow exists: extend incrementally instead of rebuilding
             self._uncommitted_tree.extend_batch([txn_to_leaf(t) for t in txns])
         self._uncommitted.extend(txns)
         return self.uncommitted_root_hash, self.uncommitted_size
+
+    def _fold_shadow_pending(self) -> None:
+        """Host-side catch-up for leaves staged with defer_hash=True:
+        extend the shadow with anything the commit wave has not hashed
+        yet (the wave's degrade-to-host path, and any host read that
+        races a staged-but-undrained wave)."""
+        if self._shadow_pending and self._uncommitted_tree is not None:
+            pending, self._shadow_pending = self._shadow_pending, []
+            self._uncommitted_tree.extend_batch(
+                [txn_to_leaf(t) for t in pending])
 
     def commit_txns(self, count: int) -> tuple[list[dict], list[dict]]:
         """Commit the first `count` staged txns; returns (txns, merkle_infos)."""
@@ -112,6 +144,7 @@ class Ledger:
         txns = self._uncommitted[:count]
         self._uncommitted = self._uncommitted[count:]
         self._uncommitted_tree = None
+        self._shadow_pending = []
         infos = self.append_batch(txns)
         return txns, infos
 
@@ -122,10 +155,12 @@ class Ledger:
         if count:
             self._uncommitted = self._uncommitted[:-count]
             self._uncommitted_tree = None
+            self._shadow_pending = []
 
     def reset_uncommitted(self) -> None:
         self._uncommitted = []
         self._uncommitted_tree = None
+        self._shadow_pending = []
 
     @property
     def uncommitted_size(self) -> int:
@@ -144,7 +179,34 @@ class Ledger:
             shadow = self.tree.fork()
             shadow.extend_batch([txn_to_leaf(t) for t in self._uncommitted])
             self._uncommitted_tree = shadow
+            self._shadow_pending = []
+        else:
+            self._fold_shadow_pending()
         return self._uncommitted_tree.root_hash
+
+    def uncommitted_root_staged(self):
+        """Commit-wave family (parallel/commit_wave.py): the staged twin
+        of `uncommitted_root_hash` for leaves staged with
+        defer_hash=True. Yields ONE ("hlev", "sha256", <leaf preimages>)
+        cmt job — every pending txn's domain-prefixed leaf bytes —
+        receives the leaf digests back, extends the shadow through the
+        precomputed-hash entry point (`_extend_hashes`, whose interior
+        sweep rides the fused merkle kernel when the tree's hasher is
+        device-backed), and returns the uncommitted root."""
+        if not self._uncommitted:
+            return self.root_hash
+        shadow = self._uncommitted_tree
+        pending = self._shadow_pending if shadow is not None \
+            else list(self._uncommitted)
+        if shadow is None:
+            shadow = self.tree.fork()
+        if pending:
+            res = yield [("hlev", "sha256",
+                          tuple(b"\x00" + txn_to_leaf(t) for t in pending))]
+            shadow._extend_hashes(list(res[0]))
+        self._uncommitted_tree = shadow
+        self._shadow_pending = []
+        return shadow.root_hash
 
     # --- reads ------------------------------------------------------------
 

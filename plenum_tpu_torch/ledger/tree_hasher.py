@@ -45,7 +45,8 @@ class TreeHasher:
         return [self.hash_children(l, r) for l, r in pairs]
 
 
-def fused_wave_levels(new_hashes, bounds, offs, counts, device):
+def fused_wave_levels(new_hashes, bounds, offs, counts, device,
+                      note_shape=None):
     """An append wave's interior levels through ops/sha256.merkle_wave_flat
     — the shared implementation behind `hash_wave_levels`.
 
@@ -59,10 +60,15 @@ def fused_wave_levels(new_hashes, bounds, offs, counts, device):
     (single-node spine) levels on host. The inputs go to the device in one
     copy (new0, bounds and offs packed into one int32 buffer) and the
     levels come back in one copy (a prefix of the flat output).
+    note_shape, when given, is called with the shape key ("merkle",
+    bucket) before the launch, so the pipeline's shape guard can count
+    it.
     """
     n = len(new_hashes)
     bucket = _pow2_at_least(max(2, n))
     depth = bucket.bit_length() - 1          # log2(bucket) levels
+    if note_shape is not None:
+        note_shape(("merkle", bucket))
     packed = np.zeros(8 * bucket + 9 * depth, dtype=np.uint32)
     new0 = packed[:8 * bucket].reshape(bucket, 8)
     bnd = packed[8 * bucket:8 * (bucket + depth)].reshape(depth, 8)

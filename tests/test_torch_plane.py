@@ -147,7 +147,7 @@ def test_plane_rejects_grids_that_do_not_tile():
 
 @pytest.mark.parametrize("dispatch", ["bytes", "limbs"])
 def test_torch_sharded_verifier_matches_cpu(dispatch):
-    v = make_verifier("torch-sharded")
+    v = make_verifier("torch-sharded", supervised=False)
     assert v._plane.mesh.shape == {"inst": 2, "sig": 2}
     v._compressed_dispatch = dispatch == "bytes"
     assert v.verify_batch(_ITEMS).tolist() == _WANT.tolist()
