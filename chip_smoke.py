@@ -56,7 +56,35 @@ drives the port's paths on the card:
      (torch.profiler), launches, waves, dedup and pad share, beside
      slice 1's single-replica batch wall. The dummy lanes of the
      prewarm are held to False on K3 + K4 first;
-  6. times: per kernel, the median of CUDA-event-timed launches after
+  6. path E, the replica's execution layer (slice 7), wired as the
+     reference pool wires it below the Node (tools/local_pool.build_pool,
+     node.py's BLS): a genesis of four NODE txns with their BLS keys,
+     the trustee and 100,000 NYMs (4 of them role-less DIDs with keys
+     from known seeds), replayed once into one replica's stores and
+     copied by convert.bootstrap_from_rows into four NodeBootstrap
+     replicas on one make_crypto_pipeline(Config(
+     PIPELINE_SHA_MIN_BATCH=512), "cuda", supervised=True), each with a
+     BlsBftReplica on the ring's BLS lane, and a twin on "cpu" (hashlib,
+     no ring). Fails unless native bn254 loaded. After prewarm, one
+     unmeasured batch and pin(), 5 batches of 1,000 NYMs for fresh DIDs
+     as run_load makes them (8 corrupted as in path A, 2 signed by
+     role-less DIDs): every replica authenticates, apply_batch-es,
+     certifies (the primary's pre-prepare, each replica's commit, all
+     four commits processed, order) and commit_batch-es. Each batch
+     fails unless every replica and the twin give 990 applied, 8
+     rejected in authentication and 2 discarded, equal roots (state,
+     txn, pool state, audit) and committed txns; the multi-signature
+     verifies over the state root with a quorum; a GET_NYM for a DID of
+     the batch proves against the committed root with a multi-signature
+     that verifies; one Ed25519 wave, 0 unpinned shapes, 0 cmt host
+     fallbacks, 8 completed commit waves (none degraded to the host),
+     nothing routed off the card; and K3 = K4 = 1, K1 = 2 per SHA-256
+     block count and 8 k_merkle_wave launches. Per batch it prints the
+     wall time split into authenticate / apply / BLS / commit, the
+     device busy time, launches, waves, dedup hits, BLS items and
+     pairings, the twin's time, and one more batch under cProfile;
+     beside them path D's ring batches and path A's batch;
+  7. times: per kernel, the median of CUDA-event-timed launches after
      warm-up, its plain version's time, and its bound on this card (K3-K6,
      one quad of four threads per item, at 32, 64 and 128 threads per
      block, each result held to the default's; the plane's steps also
@@ -71,9 +99,10 @@ drives the port's paths on the card:
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails if a kernel of that path was never launched.
-The card's verifiers are bare (a fault raises), but for path D's ring,
-which is supervised as the reference pool wires it: that path fails if
-the supervisor fell back to the CPU, hedged, or saw a device error.
+The card's verifiers are bare (a fault raises), but for path D's and
+path E's rings, which are supervised as the reference pool wires them:
+those paths fail if the supervisor fell back to the CPU, hedged, or saw
+a device error.
 Prints JSON lines (kernels, paths, device) and, last, one JSON object
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Imports nothing of JAX.
@@ -282,6 +311,417 @@ def sha_device_times() -> int:
     print(json.dumps({"sha_device_ms": times, "sha_event_ms": events,
                       "tree": root, "gpu": _smi("name,power.limit")}))
     return 0
+
+
+def host_profile(prof: cProfile.Profile) -> dict:
+    """Where a profiled run's host time went: total time by source file
+    (the package's files by their path in it) and the top functions."""
+    by_fn = pstats.Stats(prof).stats
+    by_file: dict[str, float] = {}
+    for (path_, _, _), (_, _, tot, _, _) in by_fn.items():
+        key = path_[path_.find("plenum_tpu_torch/"):] \
+            if "plenum_tpu_torch/" in path_ else \
+            "builtins" if path_ == "~" else path_.split("site-packages/")[-1]
+        by_file[key] = by_file.get(key, 0.0) + tot * 1e3
+    return {
+        "profiled_ms": sum(by_file.values()),
+        "tottime_ms_by_file": dict(sorted(by_file.items(),
+                                          key=lambda kv: -kv[1])[:15]),
+        "top_functions": [
+            {"function": f"{os.path.basename(f_)}:{ln}:{name}",
+             "calls": v[1], "tottime_ms": v[2] * 1e3,
+             "cumtime_ms": v[3] * 1e3}
+            for (f_, ln, name), v in sorted(by_fn.items(),
+                                            key=lambda kv: -kv[1][2])[:20]]}
+
+
+def replica_path(batch_device, off_card_check) -> dict:
+    """Path E, the replica's execution layer on the device ring (module
+    docstring): four co-hosted replicas and a hashlib twin, built by
+    NodeBootstrap over one genesis (four NODE txns with BLS keys, the
+    trustee and 100,000 NYMs, four of them role-less DIDs with keys from
+    known seeds), run 5 batches of 1,000 NYM requests through
+    authenticate, apply, BLS and commit. Raises on any check that fails;
+    -> the path's record. `batch_device(fn)` runs fn under the device
+    profiler (-> result, wall ms, busy ms, ms by kernel);
+    `off_card_check(what, verifier)` fails if the supervisor routed work
+    off the card."""
+    import numpy as np
+
+    from plenum_tpu_torch import convert, ops
+    from plenum_tpu_torch.common.node_messages import (DOMAIN_LEDGER_ID,
+                                                       Commit, PrePrepare)
+    from plenum_tpu_torch.common.quorums import Quorums
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.common.serialization import pack, unpack
+    from plenum_tpu_torch.config import Config
+    from plenum_tpu_torch.consensus.bls_bft_replica import BlsBftReplica
+    from plenum_tpu_torch.crypto.bn254 import PAIRING_STATS
+    from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
+    from plenum_tpu_torch.crypto.multi_signature import MultiSignature
+    from plenum_tpu_torch.execution import ThreePcBatch
+    from plenum_tpu_torch.execution import txn as txn_lib
+    from plenum_tpu_torch.execution.txn import GET_NYM, NYM
+    from plenum_tpu_torch.ledger.ledger import txn_to_leaf
+    from plenum_tpu_torch.native import have_native_bn254
+    from plenum_tpu_torch.node.bootstrap import NodeBootstrap
+    from plenum_tpu_torch.ops import ed25519 as ed
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.parallel.commit_wave import CommitWave
+    from plenum_tpu_torch.parallel.pipeline import make_crypto_pipeline
+    from plenum_tpu_torch.state import rlp
+    from plenum_tpu_torch.state.trie import Trie
+    from plenum_tpu_torch.tools.local_pool import build_genesis, pool_bls_keys
+    from plenum_tpu_torch.utils.base58 import b58decode, b58encode
+
+    if not have_native_bn254():
+        raise AssertionError("path E: the native bn254 library did not "
+                             "build; pure-Python pairings would make every "
+                             "host number of the path meaningless")
+    n_prefill, n_req, n_batches = 100_000, 1000, 5
+    sha_min, bucket = 512, 1024       # path D's ring
+    names = [f"Node{i + 1}" for i in range(4)]
+    rng = np.random.default_rng(20261018)
+    perf = time.perf_counter
+
+    # --- genesis: the pool's NODE txns, the trustee, n_prefill NYMs ------
+    t0 = perf()
+    genesis, trustee = build_genesis(names)
+    idle = [Ed25519Signer(seed=(b"path-e-idle-%d" % k).ljust(32, b"\0"))
+            for k in range(4)]
+    raw = rng.bytes(32 * n_prefill)
+    domain = list(genesis[DOMAIN_LEDGER_ID])
+    for i in range(n_prefill - len(idle)):
+        vk = raw[32 * i:32 * i + 32]
+        domain.append(txn_lib.new_txn(NYM, {"dest": b58encode(vk[:16]),
+                                            "verkey": b58encode(vk)}))
+    for s in idle:
+        domain.append(txn_lib.new_txn(NYM, {"dest": s.identifier,
+                                            "verkey": s.verkey_b58}))
+    for i, txn in enumerate(domain):
+        txn_lib.set_seq_no(txn, i + 1)
+    genesis[DOMAIN_LEDGER_ID] = domain
+    genesis_s = perf() - t0
+
+    # one replica's stores from the genesis replay (hashlib, no ring),
+    # the four ring replicas and the twin on copies of them (convert)
+    t0 = perf()
+    first = NodeBootstrap(names[0], genesis_txns=genesis,
+                          crypto_backend="cpu").build()
+    replay_s = perf() - t0
+    t0 = perf()
+    rows = convert.replica_rows(first)
+    del first
+    pipe = make_crypto_pipeline(Config(PIPELINE_SHA_MIN_BATCH=sha_min),
+                                "cuda", supervised=True)
+    comps = [convert.bootstrap_from_rows(n, rows, genesis_txns=genesis,
+                                         pipeline=pipe).build()
+             for n in names]
+    twin = convert.bootstrap_from_rows("Twin", rows, genesis_txns=genesis,
+                                       crypto_backend="cpu").build()
+    copy_s = perf() - t0
+    bls_keys = pool_bls_keys(names)
+    blss = []
+    for n, c in zip(names, comps):
+        if c.bls_register.get_key_by_name(n) != bls_keys[n]:
+            raise AssertionError(f"path E: {n}'s BLS key is not the pool "
+                                 f"ledger's")
+        blss.append(BlsBftReplica(
+            node_name=n, bls_signer=c.bls_signer,
+            bls_verifier=pipe.bls_verifier(), key_register=c.bls_register,
+            bls_store=c.bls_store, quorums=Quorums(4)))
+    roots0 = {c.db.get_state(DOMAIN_LEDGER_ID).committed_head_hash
+              for c in comps + [twin]}
+    sizes0 = {c.db.get_ledger(DOMAIN_LEDGER_ID).size for c in comps + [twin]}
+    if len(roots0) != 1 or sizes0 != {n_prefill + 1}:
+        raise AssertionError(f"path E: the replicas start apart: "
+                             f"{len(roots0)} state roots, sizes {sizes0}")
+
+    # --- the requests, as run_load makes them ---------------------------
+    next_user = [0]
+
+    def batch_requests(first_id: int):
+        """n_req NYMs for fresh DIDs: n_req - 2 from the trustee, 8 of
+        them corrupted as in path A, and 2 signed by role-less DIDs ->
+        (requests, expected verdicts, the 2 role-less requests)."""
+        reqs = []
+        for i in range(n_req - 2):
+            user = Ed25519Signer(
+                seed=(b"lpu%d" % next_user[0]).ljust(32, b"\0")[:32])
+            next_user[0] += 1
+            req = Request(trustee.identifier, first_id + i,
+                          {"type": NYM, "dest": user.identifier,
+                           "verkey": user.verkey_b58})
+            req.signature = trustee.sign_b58(req.signing_bytes())
+            reqs.append((req, user))
+        expect = [True] * (n_req - 2)
+        bad = [int(i) for i in rng.choice(n_req - 2, size=8, replace=False)]
+        for k, i in enumerate(bad):
+            r, user = reqs[i]
+            if k < 3:       # one bit of the signature flipped
+                sig = bytearray(b58decode(r.signature))
+                sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+                r.signature = b58encode(bytes(sig))
+            elif k < 5:     # operation changed after signing
+                forged = Request(r.identifier, r.req_id,
+                                 {**r.operation, "role": "0"})
+                forged.signature = r.signature
+                reqs[i] = (forged, user)
+            elif k < 7:     # signed by another key
+                r.signature = user.sign_b58(r.signing_bytes())
+            else:           # S >= L
+                sig = b58decode(r.signature)
+                r.signature = b58encode(sig[:32]
+                                        + (ed.L + 7).to_bytes(32, "little"))
+            expect[i] = False
+        reqs = [r for r, _ in reqs]
+        roleless = []
+        for j in range(2):
+            author = idle[(first_id + j) % len(idle)]
+            user = Ed25519Signer(
+                seed=(b"lpu%d" % next_user[0]).ljust(32, b"\0")[:32])
+            next_user[0] += 1
+            req = Request(author.identifier, first_id + j,
+                          {"type": NYM, "dest": user.identifier,
+                           "verkey": user.verkey_b58})
+            req.signature = author.sign_b58(req.signing_bytes())
+            at = int(rng.integers(len(reqs) + 1))
+            reqs.insert(at, req)
+            expect.insert(at, True)
+            roleless.append(req)
+        return reqs, expect, roleless
+
+    # --- one batch on the four replicas ---------------------------------
+    wave_runs = [0]
+    wave_run = CommitWave.run
+
+    def counted_run(self):
+        out = wave_run(self)
+        wave_runs[0] += 1
+        return out
+
+    def pp_time_of(k: int) -> float:
+        return 1_760_000_000.25 + 10 * k
+
+    def replicas_batch(k: int, reqs, prev_root):
+        """Authenticate, apply, BLS (the primary's pre-prepare, every
+        replica's commit, each processing the four commits, order) and
+        commit on the four replicas -> (what they answered, host ms per
+        phase, pairings)."""
+        pairings0 = PAIRING_STATS["pairings"]
+        t = [perf()]
+        verdicts = [c.authenticator.authenticate_batch(reqs) for c in comps]
+        accepted = [r for r, ok in zip(reqs, verdicts[0]) if ok]
+        t.append(perf())
+        applied = [c.executor.apply_batch(
+            DOMAIN_LEDGER_ID, accepted, pp_time_of(k), view_no=0,
+            pp_seq_no=k, primaries=[names[0]]) for c in comps]
+        t.append(perf())
+        a = applied[0]
+        params = blss[0].update_pre_prepare({}, prev_root or "")
+        pp = PrePrepare(
+            inst_id=0, view_no=0, pp_seq_no=k, pp_time=pp_time_of(k),
+            req_idr=a.valid_digests, discarded=a.discarded,
+            digest=hashlib.sha256("".join(a.valid_digests).encode())
+            .hexdigest(), ledger_id=DOMAIN_LEDGER_ID,
+            state_root=a.state_root, txn_root=a.txn_root,
+            pool_state_root=a.pool_state_root,
+            audit_txn_root=a.audit_txn_root,
+            bls_multi_sig=params.get("bls_multi_sig"))
+        pp_faults = [b.validate_pre_prepare(pp, names[0]) for b in blss[1:]]
+        commits = [Commit(inst_id=0, view_no=0, pp_seq_no=k,
+                          **b.update_commit({}, pp)) for b in blss]
+        for b in blss:
+            for n, cm in zip(names, commits):
+                b.process_commit(cm, n)
+        mss = [b.process_order((0, k), pp) for b in blss]
+        t.append(perf())
+        batch = ThreePcBatch(
+            ledger_id=DOMAIN_LEDGER_ID, view_no=0, pp_seq_no=k,
+            pp_time=pp_time_of(k), valid_digests=a.valid_digests,
+            state_root=bytes.fromhex(a.state_root),
+            txn_root=bytes.fromhex(a.txn_root),
+            audit_txn_root=bytes.fromhex(a.audit_txn_root),
+            primaries=(names[0],), node_reg=tuple(names))
+        committed = [c.executor.commit_batch(batch) for c in comps]
+        t.append(perf())
+        phases = {ph: (b_ - a_) * 1e3 for ph, a_, b_ in zip(
+            ("authenticate", "apply", "bls", "commit"), t, t[1:])}
+        return ((verdicts, applied, pp, pp_faults, mss, committed, batch),
+                phases, PAIRING_STATS["pairings"] - pairings0)
+
+    def twin_batch(k: int, reqs):
+        verdicts = twin.authenticator.authenticate_batch(reqs)
+        accepted = [r for r, ok in zip(reqs, verdicts) if ok]
+        a = twin.executor.apply_batch(DOMAIN_LEDGER_ID, accepted,
+                                      pp_time_of(k), view_no=0, pp_seq_no=k,
+                                      primaries=[names[0]])
+        batch = ThreePcBatch(
+            ledger_id=DOMAIN_LEDGER_ID, view_no=0, pp_seq_no=k,
+            pp_time=pp_time_of(k), valid_digests=a.valid_digests,
+            state_root=bytes.fromhex(a.state_root),
+            txn_root=bytes.fromhex(a.txn_root),
+            audit_txn_root=bytes.fromhex(a.audit_txn_root),
+            primaries=(names[0],), node_reg=tuple(names))
+        return verdicts, a, twin.executor.commit_batch(batch)
+
+    def check(what: str, out, expect, roleless, twin_out, st0, waves0):
+        """Every check of a batch (module docstring) -> the ring's stats
+        over the batch."""
+        verdicts, applied, pp, pp_faults, mss, committed, _ = out
+        t_verdicts, t_applied, t_committed = twin_out
+        for v in verdicts + [t_verdicts]:
+            if [bool(x) for x in v] != expect:
+                raise AssertionError(f"{what}: a replica's verdicts differ "
+                                     f"from the expected ones")
+        want_discarded = {r.digest for r in roleless}
+        for a in applied + [t_applied]:
+            if tuple(a)[:4] != tuple(applied[0])[:4]:
+                raise AssertionError(f"{what}: the replicas' roots differ "
+                                     f"(state, txn, pool state, audit)")
+            if len(a.valid_digests) != n_req - 10 or \
+                    set(a.discarded) != want_discarded:
+                raise AssertionError(
+                    f"{what}: {len(a.valid_digests)} applied and "
+                    f"{len(a.discarded)} discarded, want {n_req - 10} and "
+                    f"the 2 role-less requests")
+        packed = {pack(c) for c in committed + [t_committed]}
+        if len(packed) != 1 or len(committed[0]) != n_req - 10:
+            raise AssertionError(f"{what}: the committed txns differ")
+        a = applied[0]
+        for c in comps + [twin]:
+            st = c.db.get_state(DOMAIN_LEDGER_ID)
+            if st.committed_head_hash.hex() != a.state_root or \
+                    c.db.get_ledger(DOMAIN_LEDGER_ID).root_hash.hex() != \
+                    a.txn_root:
+                raise AssertionError(f"{what}: a committed root is not the "
+                                     f"applied one")
+        if any(f is not None for f in pp_faults):
+            raise AssertionError(f"{what}: the pre-prepare's multi-"
+                                 f"signature was refused: {pp_faults}")
+        if any(ms is None for ms in mss) or \
+                len({pack(ms.to_list()) for ms in mss}) != 1:
+            raise AssertionError(f"{what}: no common multi-signature")
+        ms = mss[0]
+        if ms.value.state_root_hash != a.state_root or \
+                not ms.verify(bls_keys) or \
+                not Quorums(4).bls_signatures.is_reached(
+                    len(ms.participants)):
+            raise AssertionError(f"{what}: the multi-signature does not "
+                                 f"verify over the state root")
+        # GET_NYM for a DID the batch wrote, on every replica
+        i = int(rng.integers(len(committed[0])))
+        data = txn_lib.txn_data(committed[0][i])
+        for c in comps:
+            res = c.read_manager.get_result(Request(
+                trustee.identifier, 10**9 + i,
+                {"type": GET_NYM, "dest": data["dest"]}))
+            sp = res["state_proof"]
+            present, got = Trie.verify_proof(
+                bytes.fromhex(sp["root_hash"]), data["dest"].encode(),
+                rlp.decode(bytes.fromhex(sp["proof_nodes"])))
+            if sp["root_hash"] != a.state_root or not present or \
+                    unpack(got) != res["data"] or \
+                    res["data"]["verkey"] != data["verkey"]:
+                raise AssertionError(f"{what}: GET_NYM's state proof does "
+                                     f"not verify")
+            if not MultiSignature.from_list(
+                    sp["multi_signature"]).verify(bls_keys):
+                raise AssertionError(f"{what}: GET_NYM's multi-signature "
+                                     f"does not verify")
+        got = {k_: pipe.stats[k_] - st0[k_] for k_ in pipe.stats}
+        if got["dispatches"] != 1 or pipe.stats["unpinned_shapes"] or \
+                pipe.stats["cmt_host_fallbacks"]:
+            raise AssertionError(
+                f"{what}: {got['dispatches']} Ed25519 waves (want 1), "
+                f"{pipe.stats['unpinned_shapes']} unpinned shapes, "
+                f"{pipe.stats['cmt_host_fallbacks']} cmt host fallbacks")
+        if wave_runs[0] - waves0 != 2 * len(comps):
+            raise AssertionError(
+                f"{what}: {wave_runs[0] - waves0} commit waves completed, "
+                f"want {2 * len(comps)} (a wave degraded to the host)")
+        off_card_check(what, pipe.verifier())
+        return got
+
+    CommitWave.run = counted_run
+    try:
+        prev = None
+        if pipe.prewarm([bucket]) != [bucket]:
+            raise AssertionError(f"path E: prewarm did not warm bucket "
+                                 f"{bucket}")
+        # one unmeasured batch notes the shapes the prewarm does not
+        reqs, expect, roleless = batch_requests(1)
+        st0, w0 = dict(pipe.stats), wave_runs[0]
+        out, _, _ = replicas_batch(1, reqs, prev)
+        check("path E warm-up", out, expect, roleless, twin_batch(1, reqs),
+              st0, w0)
+        prev = out[2].state_root
+        pipe.pin()
+        batches = []
+        ops.reset_counts()
+        for k in range(2, 2 + n_batches):
+            reqs, expect, roleless = batch_requests(k * n_req)
+            st0, w0 = dict(pipe.stats), wave_runs[0]
+            counts0 = dict(ops.LAUNCHES)
+            (out, phases, pairings), wall, busy, by_name = batch_device(
+                lambda: replicas_batch(k, reqs, prev))
+            counts = {k_: ops.LAUNCHES[k_] - counts0[k_]
+                      for k_ in ops.LAUNCHES}
+            t_tw = perf()
+            twin_out = twin_batch(k, reqs)
+            twin_ms = (perf() - t_tw) * 1e3
+            got = check(f"path E batch {k}", out, expect, roleless, twin_out,
+                        st0, w0)
+            prev = out[2].state_root
+            # K3 + K4 once for the four replicas' wave; K1 once per SHA-256
+            # block count of the leaves for the first apply's leaf level
+            # (the other three hit the cmt lane's cache) and once for the
+            # first commit (the others hit the SHA lane's digest cache);
+            # one k_merkle_wave per replica in its apply and one in its
+            # commit; nothing else (state hashing is sha3 on the host)
+            groups = len({sha.n_blocks_for(len(txn_to_leaf(t_)) + 1)
+                          for t_ in out[5][0]})
+            want = {k_: 0 for k_ in ops.LAUNCHES}
+            want.update(ed25519_decompress=1, ed25519_verify=1,
+                        sha256_words=2 * groups, merkle_wave=2 * len(comps))
+            if counts != want:
+                raise AssertionError(f"path E batch {k}: launches {counts}, "
+                                     f"want {want}")
+            batches.append({
+                "wall_ms_4_replicas": wall, "host_ms_by_phase": phases,
+                "twin_ms": twin_ms, "device_busy_ms": busy,
+                "device_ms_by_name": by_name, "launches": counts,
+                "ed_dispatches": got["dispatches"],
+                "dedup_hits": got["dedup_hits"],
+                "cache_hits": got["cache_hits"],
+                "bls_items": got["bls_items"], "bls_unique": got["bls_unique"],
+                "bls_batches": got["bls_batches"], "pairings": pairings,
+                "cmt_items": got["cmt_items"], "cmt_unique": got["cmt_unique"],
+                "sha_items": got["sha_items"], "sha_unique": got["sha_unique"],
+                "applied": len(out[1][0].valid_digests),
+                "discarded": len(out[1][0].discarded)})
+        counts = dict(ops.LAUNCHES)
+        # where an apply + commit batch's host time goes: one more batch
+        # under cProfile (which slows every Python call: read shares)
+        k = 2 + n_batches
+        reqs, expect, roleless = batch_requests(k * n_req)
+        st0, w0 = dict(pipe.stats), wave_runs[0]
+        prof = cProfile.Profile()
+        out, _, _ = prof.runcall(replicas_batch, k, reqs, prev)
+        check("path E batch under cProfile", out, expect, roleless,
+              twin_batch(k, reqs), st0, w0)
+    finally:
+        CommitWave.run = wave_run
+    return {
+        "replicas": len(comps), "requests_per_batch": n_req,
+        "domain_txns_at_genesis": n_prefill + 1,
+        "domain_txns_after": comps[0].db.get_ledger(DOMAIN_LEDGER_ID).size,
+        "sha_min_batch": sha_min, "native_bn254": have_native_bn254(),
+        "genesis_s": genesis_s, "genesis_replay_one_replica_s": replay_s,
+        "copies_to_4_replicas_and_twin_s": copy_s,
+        "batches": batches, "launches": counts,
+        "host_profile_one_batch": host_profile(prof),
+        "summary": pipe.summary()}
 
 
 def main() -> int:
@@ -1072,23 +1512,7 @@ def main() -> int:
     out = host_prof.runcall(ring_batch, pipe, authns, leds, breqs)
     ring_check("ring batch under cProfile", pipe, leds, ring_ref, bexpect,
                out, before)
-    by_fn = pstats.Stats(host_prof).stats
-    by_file: dict[str, float] = {}
-    for (path_, _, _), (_, _, tot, _, _) in by_fn.items():
-        key = path_[path_.find("plenum_tpu_torch/"):] \
-            if "plenum_tpu_torch/" in path_ else \
-            "builtins" if path_ == "~" else path_.split("site-packages/")[-1]
-        by_file[key] = by_file.get(key, 0.0) + tot * 1e3
-    host_profile = {
-        "profiled_ms": sum(by_file.values()),
-        "tottime_ms_by_file": dict(sorted(by_file.items(),
-                                          key=lambda kv: -kv[1])[:15]),
-        "top_functions": [
-            {"function": f"{os.path.basename(f_)}:{ln}:{name}",
-             "calls": v[1], "tottime_ms": v[2] * 1e3,
-             "cumtime_ms": v[3] * 1e3}
-            for (f_, ln, name), v in sorted(by_fn.items(),
-                                            key=lambda kv: -kv[1][2])[:20]]}
+    host_profile_d = host_profile(host_prof)
     ring_summary = pipe.summary()
     ring_sup = find_supervisor(pipe.verifier()).supervisor_stats()
     # the same four replicas sharing nothing, from the same ledger state
@@ -1156,7 +1580,7 @@ def main() -> int:
         "batches": ring_batches,
         "slice1_single_replica_batch_wall_ms": (t_commit - t_main) * 1e3,
         "launches": ring_counts, "summary": ring_summary,
-        "host_profile_one_batch": host_profile,
+        "host_profile_one_batch": host_profile_d,
         "four_replicas_without_ring": {"batches": solo_batches,
                                        "launches": solo_counts},
         "supervisor": ring_sup, "setup_s": ring_setup_s,
@@ -1168,6 +1592,20 @@ def main() -> int:
                     / got_s["submitted_items"],
                     "pad_items": got_s["pad_items"],
                     "setup_s": time.perf_counter() - t_rs}}}))
+
+    # --- path E: the replica's execution layer on the ring (slice 7) -----
+    t_e = time.perf_counter()
+    replica = replica_path(batch_device, require_nothing_off_card)
+    replica_counts = replica["launches"]
+    require_launched("replica", replica_counts,
+                     ("sha256_words", "merkle_wave", "ed25519_decompress",
+                      "ed25519_verify"))
+    replica.update({
+        "path_s": time.perf_counter() - t_e,
+        "path_d_ring_batch_wall_ms": [b_["wall_ms_4_replicas"]
+                                      for b_ in ring_batches],
+        "path_a_single_replica_batch_wall_ms": (t_commit - t_main) * 1e3})
+    print(json.dumps({"replica_path": replica}))
 
     # --- phase 3: times at the slice's shapes ------------------------------
     # the 1,000-request batch's own inputs
@@ -1341,7 +1779,8 @@ def main() -> int:
     ]
     path_counts = {"slice": main_counts, "sharded": sharded_counts,
                    "probe": probe_counts, "ring": ring_counts,
-                   "ring_sharded": ring_sharded_counts}
+                   "ring_sharded": ring_sharded_counts,
+                   "replica": replica_counts}
     path_of = {"K1": "slice", "K2": "slice", "K2T": "slice", "K2L": "slice",
                "K3": "slice",
                "K4": "slice", "K5": "sharded", "K6": "sharded",
@@ -1429,6 +1868,8 @@ def main() -> int:
             "launches_by_path": {p_: c_[name] for p_, c_ in path_counts.items()},
             "launches_per_1000_txn_batch": batch_counts[name],
             "launches_per_ring_batch": ring_batches[0]["launches"][name],
+            "launches_per_replica_batch":
+                replica["batches"][0]["launches"][name],
             "shape": shape,
             **sha_times})
     by_id = {k_["id"]: k_ for k_ in kernels}

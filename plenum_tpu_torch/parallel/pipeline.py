@@ -66,11 +66,10 @@ the SHA lane K1 and an append wave `k_merkle_wave` (ops/sha256.py).
 This is the reference's single-device ring. Not here yet: the
 multi-device and federated rings (`n_devices != 1` and
 `PIPELINE_REMOTE_HOSTS` raise NotImplementedError, ROADMAP A7; the
-`lane` arguments of the shared wave helpers are their seam), and the
-default BLS and KZG engines (ROADMAP A5): the BLS lane and the cmt
-lane's "commit"/"multiproof" jobs raise NotImplementedError unless an
-engine is injected, never falling back silently. "hlev" jobs, the
-commit wave's hash levels, run here in full.
+`lane` arguments of the shared wave helpers are their seam). The BLS
+lane's default engine is the host `BlsCryptoVerifier` (crypto/bls.py,
+native bn254), and the cmt lane's "commit"/"multiproof" jobs run the
+host KZG engine (state/commitment/kzg.py), as the reference's do.
 """
 from __future__ import annotations
 
@@ -121,11 +120,6 @@ def _device_of(verifier):
 def _device_backed(verifier) -> bool:
     """Does this verifier chain end in a device (torch) verifier?"""
     return _device_of(verifier) is not None
-
-
-def _no_engine(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A5): inject an engine")
 
 
 class PipelineController:
@@ -325,8 +319,9 @@ class CryptoPipeline:
         # would verify every pad lane for real, so only device-backed
         # chains pad
         self._bucketed = _device_backed(self._ed_inner)
-        # no default BLS engine until crypto/bls.py is ported (ROADMAP
-        # A5): submit_bls raises without an injected one
+        if bls_inner is None:
+            from plenum_tpu_torch.crypto.bls import BlsCryptoVerifier
+            bls_inner = BlsCryptoVerifier()
         self._bls_inner = bls_inner
         # the SHA lane hashes on the Ed25519 inner's device (the CPU for
         # the torch backends; None means the card); sha_device=None
@@ -340,11 +335,13 @@ class CryptoPipeline:
         self._on_card = (self._sha_dev is not None
                          and self._sha_dev.type == "cuda")
         # state-commitment lane engine (state/commitment/): injectable so
-        # a device MSM backend can slot in behind supervise(). The
-        # reference's default host KZG engine is not ported yet (ROADMAP
-        # A5): "commit"/"multiproof" jobs with no engine raise
-        # NotImplementedError; an engine failure re-runs the wave on
-        # the host engine, so without one it raises too
+        # a device MSM backend can slot in behind supervise(); None = the
+        # default host KZG engine (`_cmt_run`). An injected engine's
+        # failure re-runs its jobs on the default host engine, each job
+        # on its own, and counts in stats["cmt_host_fallbacks"]; a job
+        # that still fails resolves to None and its submitter recomputes.
+        # Unlike the ed lane on the card, which raises, this lane never
+        # raises into the caller
         self._cmt_inner = cmt_inner
 
         # pinned bucket ladder: pow2 steps between the config bounds
@@ -911,8 +908,6 @@ class CryptoPipeline:
     # --- BLS: ring-deduped combined batch checks ---------------------------
 
     def submit_bls(self, items) -> _SyncToken:
-        if self._bls_inner is None:
-            raise _no_engine("the BLS lane's default engine (crypto/bls.py)")
         tok = _SyncToken(list(items))
         self.stats["submitted_items"] += len(tok.items)
         self._bls_staged.append(tok)
@@ -1046,20 +1041,18 @@ class CryptoPipeline:
     def _cmt_run(self, jobs: Sequence[tuple]) -> list:
         """Host engine with PER-JOB fault isolation: a malformed job
         resolves to None (its submitter's inline fallback recomputes),
-        never taking the rest of the wave down with it. "commit" and
-        "multiproof" jobs need the host KZG engine, which is not ported
-        yet: they raise NotImplementedError here, outside the per-job
-        isolation, so a missing module never reads as None results."""
-        for job in jobs:
-            if isinstance(job, tuple) and job[:1] in (("commit",),
-                                                      ("multiproof",)):
-                raise _no_engine("the host KZG engine "
-                                 "(state/commitment/kzg)")
+        never taking the rest of the wave down with it."""
+        from plenum_tpu_torch.state.commitment import kzg
         out = []
         for job in jobs:
             try:
                 if job[0] == "hlev":
                     out.append(self._hash_level(job[1], job[2]))
+                elif job[0] == "commit":
+                    out.append(kzg.engine_for(job[1])
+                               .commit(dict(job[2])))
+                elif job[0] == "multiproof":
+                    out.append(kzg.prove_multi(list(job[1])))
                 else:
                     out.append(None)
             except Exception:

@@ -48,7 +48,14 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert "plenum_tpu_torch.ops.ed25519" in mods and len(mods) >= 20
     assert {"plenum_tpu_torch.ops.field_chain", "plenum_tpu_torch.parallel",
             "plenum_tpu_torch.parallel.mesh", "plenum_tpu_torch.graft_entry",
-            "plenum_tpu_torch.parallel.crypto_plane"} <= set(mods)
+            "plenum_tpu_torch.parallel.crypto_plane",
+            "plenum_tpu_torch.state", "plenum_tpu_torch.state.commitment",
+            "plenum_tpu_torch.state.commitment.kzg",
+            "plenum_tpu_torch.execution", "plenum_tpu_torch.execution.handlers",
+            "plenum_tpu_torch.native", "plenum_tpu_torch.crypto.bls",
+            "plenum_tpu_torch.consensus.bls_bft_replica",
+            "plenum_tpu_torch.node.bootstrap",
+            "plenum_tpu_torch.tools.local_pool"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _BLOCKER, *mods], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -68,3 +75,22 @@ def test_no_source_mentions_jax_imports_or_the_reference(path):
         text = fh.read()
     assert "import jax" not in text
     assert not _FORBIDDEN.search(text), path
+
+
+@pytest.mark.parametrize("src", ["bn254.cpp", "kvstore.cpp", "mptcodec.cpp"])
+def test_native_sources_are_the_ports_own_copies(src, tmp_path, monkeypatch):
+    """The host C++ is vendored byte for byte into the port, built from
+    there into the port's own 0700 cache under the user's cache home (not
+    the checkout, which may be copied to another host), never the
+    reference's."""
+    from plenum_tpu_torch import native
+    ours = os.path.join(PKG, "native", src)
+    with open(ours, "rb") as fh, \
+            open(os.path.join(ROOT, "plenum_tpu", "native", src), "rb") as ref:
+        assert fh.read() == ref.read()
+    assert native._DIR == os.path.dirname(ours)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    cache = native._cache_dir()
+    assert cache == str(tmp_path / "plenum_tpu_torch" / "native")
+    assert os.stat(cache).st_mode & 0o777 == 0o700
+    assert not cache.startswith(ROOT + os.sep)

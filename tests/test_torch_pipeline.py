@@ -4,9 +4,10 @@ pipeline.py), held to the reference's single-device cases
 ROADMAP A7): recompile guard, fused Merkle equivalence, ring dedup,
 double buffering, controller steering, supervisor composition, the
 disabled-overhead bound and the cmt pin ladder. Then the same seeded
-script through both packages' rings, and the lanes the port refuses
-until their modules are ported, and the card chain's errors, which
-the port lets out of the ring."""
+script through both packages' rings, the ring's default BLS and KZG
+engines against the reference's, the rings the port refuses until
+their modules are ported, and the card chain's errors, which the port
+lets out of the ring."""
 import hashlib
 import random
 import time
@@ -717,48 +718,108 @@ def test_ring_matches_reference_on_one_seeded_script(seed):
     assert port["stats"]["dedup_hits"] > 0 and port["stats"]["pad_items"] > 0
 
 
-# --- what the port refuses until its modules are ported --------------------
+# --- the ring's default BLS and KZG engines ---------------------------------
 
-def test_bls_lane_without_an_engine_raises_naming_a5():
+def _bls_triples():
+    """Six genuine BLS triples over one message, the fourth forged."""
+    from plenum_tpu_torch.crypto.bls import BlsSignKey
+    keys = [BlsSignKey(seed=bytes([90 + i]) * 32) for i in range(6)]
+    msg = b"ring-default-engine"
+    items = [(k.sign(msg), msg, k.verkey) for k in keys]
+    items[3] = (keys[3].sign(b"another value"), msg, keys[3].verkey)
+    return items
+
+
+def test_bls_lane_default_engine_matches_reference():
+    """Without an injected engine the BLS lane runs the default host
+    engine (crypto/bls.py BlsCryptoVerifier on native bn254), as the
+    reference's does: the same verdicts, through the lane and through
+    its adapter, a forged signature named exactly."""
+    from plenum_tpu.crypto import bls as ref_bls
+    from plenum_tpu_torch.crypto.bls import BlsCryptoVerifier
+    items = _bls_triples()
     pipe = CryptoPipeline(ed_inner=FakeDeviceVerifier(),
                           config=_fast_config())
-    with pytest.raises(NotImplementedError, match="A5"):
-        pipe.submit_bls([("sig", b"msg", "vk")])
-    with pytest.raises(NotImplementedError, match="A5"):
-        pipe.bls_verifier().batch_verify([("sig", b"msg", "vk")])
-    assert pipe.stats["bls_batches"] == 0 and not pipe._bls_staged
+    assert type(pipe._bls_inner) is BlsCryptoVerifier
+    want = [True, True, True, False, True, True]
+    assert pipe.collect_bls(pipe.submit_bls(items)) == want
+    assert pipe.bls_verifier().batch_verify(items) == want
+    ref = ref_pipeline.CryptoPipeline(config=RefConfig())
+    assert type(ref._bls_inner) is ref_bls.BlsCryptoVerifier
+    assert ref.collect_bls(ref.submit_bls(items)) == want
+    assert pipe.stats["bls_batches"] == 2 and not pipe._bls_staged
+    assert pipe.stats["bls_unique"] == 12
+
+
+def test_bls_lane_ring_dedup_with_the_default_engine():
+    """The reference's ring-dedup case on the real engine: identical BLS
+    triples staged by co-hosted submitters settle on ONE batch check of
+    the deduped union."""
+    items = _bls_triples()
+    items[3] = items[2]                      # all genuine now
+    pipe = CryptoPipeline(ed_inner=FakeDeviceVerifier(),
+                          config=_fast_config())
+    calls = []
+    inner = pipe._bls_inner.batch_verify
+    pipe._bls_inner.batch_verify = lambda its: calls.append(len(its)) or \
+        inner(its)
+    t1 = pipe.submit_bls(items)
+    t2 = pipe.submit_bls(items)           # the co-hosted twin
+    assert pipe.collect_bls(t1) == [True] * 6
+    assert pipe.collect_bls(t2) == [True] * 6
+    assert calls == [5]                   # the duplicate triple too
+    assert pipe.stats["bls_unique"] == 5
+    assert pipe.stats["dedup_hits"] >= 7
+
+
+def _kzg_jobs():
+    from plenum_tpu_torch.state.commitment import kzg
+    evals = {1: 11, 5: 55, 9: 99}
+    f_tau, c_enc = kzg.engine_for(16).commit(evals)
+    return [("commit", 16, tuple(sorted(evals.items()))),
+            ("commit", 2, ()),
+            ("multiproof", ((c_enc, f_tau, 5, 55), (c_enc, f_tau, 9, 99))),
+            ("multiproof", ()),                      # malformed: None
+            ("hlev", "sha3", (b"a", b"b"))]
 
 
 @pytest.mark.parametrize("job", [("commit", 2, ((0, 5),)),
                                  ("multiproof", ((b"c", 1, 2, 3),))])
-def test_cmt_kzg_jobs_without_an_engine_raise_naming_a5(job):
+def test_cmt_kzg_jobs_default_engine_match_reference(job):
+    """Without an injected engine the cmt lane's "commit" and
+    "multiproof" jobs run the host KZG engine (state/commitment/kzg.py):
+    the reference ring's results, job for job, a malformed job resolving
+    to None; a commit wave drains them; an injected engine that fails
+    degrades to the host engine and counts it."""
+    from plenum_tpu_torch.state.commitment import kzg
+    jobs = _kzg_jobs() + [job]
     pipe = CryptoPipeline(ed_inner=FakeDeviceVerifier(),
                           config=_fast_config())
-    lev = ("hlev", "sha256", (b"a", b"b"))
-    with pytest.raises(NotImplementedError, match="A5"):
-        pipe.collect_commitment(pipe.submit_commitment([lev, job]))
-    # never resolved to None results: the commit wave raises too
+    got = pipe.collect_commitment(pipe.submit_commitment(jobs))
+    ref = ref_pipeline.CryptoPipeline(config=RefConfig())
+    assert got == ref.collect_commitment(ref.submit_commitment(jobs))
+    assert got[0] == kzg.engine_for(16).commit({1: 11, 5: 55, 9: 99})
+    assert got[3] is None and got[4] == tuple(
+        hashlib.sha3_256(m).digest() for m in (b"a", b"b"))
+    d_enc, pi_enc = got[2]
+    c_enc = got[0][1]
+    assert kzg.verify_multi([(c_enc, 5, 55), (c_enc, 9, 99)], d_enc, pi_enc)
+    assert not kzg.verify_multi([(c_enc, 5, 56), (c_enc, 9, 99)], d_enc,
+                                pi_enc)
     wave = CommitWave(pipe)
 
     def family():
-        yield [job]
-        return b"never"
+        res = yield [job]
+        return res[0]
     wave.add("state", family())
-    with pytest.raises(NotImplementedError, match="A5"):
-        wave.run()
-    # hash levels alone run in full
-    assert pipe.collect_commitment(pipe.submit_commitment([lev])) == [
-        tuple(hashlib.sha256(m).digest() for m in (b"a", b"b"))]
+    assert wave.run() == {"state": got[-1]}
 
-    # an injected engine that fails degrades to the host engine: not
-    # ported, so that raises too instead of resolving to None
     class Failing:
         def run_jobs(self, jobs):
             raise RuntimeError("wedged engine")
     pipe = CryptoPipeline(ed_inner=FakeDeviceVerifier(), cmt_inner=Failing(),
                           config=_fast_config())
-    with pytest.raises(NotImplementedError, match="A5"):
-        pipe.collect_commitment(pipe.submit_commitment([job]))
+    assert pipe.collect_commitment(pipe.submit_commitment(jobs)) == got
     assert pipe.stats["cmt_host_fallbacks"] == 1
 
 

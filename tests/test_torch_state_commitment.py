@@ -1,0 +1,322 @@
+"""The port's StateCommitment subsystem, held to the reference's cases
+(tests/test_state_commitment.py): KZG engine, Verkle backend, interface
+conformance across backends and the pipeline commitment wave kind, on
+the ring's default host KZG engine. The ring takes no default Ed25519
+inner in the port, so these rings get the CPU verifier. The read
+plane's cases (verkle envelopes, the multi-key page, the cross-shard
+read) need the pool, `reads/` and `shards/`, which are not ported yet.
+"""
+from __future__ import annotations
+
+import pytest
+
+from plenum_tpu_torch.common.serialization import pack, unpack
+from plenum_tpu_torch.config import Config
+from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
+from plenum_tpu_torch.state.commitment import (BACKEND_MPT, BACKEND_VERKLE,
+                                               VerkleState,
+                                               commitment_backend_of,
+                                               engine_for, kzg, make_state,
+                                               stem_of)
+from plenum_tpu_torch.storage.kv_memory import KvMemory
+
+
+# --- KZG engine --------------------------------------------------------------
+
+def test_kzg_commit_deterministic_and_width_checked():
+    eng = engine_for(16)
+    ft1, c1 = eng.commit({3: 17, 9: 99})
+    ft2, c2 = eng.commit({9: 99, 3: 17})
+    assert (ft1, c1) == (ft2, c2)
+    ft3, c3 = eng.commit({3: 17, 9: 98})
+    assert c3 != c1
+    for bad in (0, 1, 3, 257, 512):
+        with pytest.raises(ValueError):
+            kzg.KzgEngine(bad)
+
+
+def test_kzg_multiproof_honest_and_tampered():
+    eng = engine_for(32)
+    ft_a, c_a = eng.commit({1: 11, 2: 22})
+    ft_b, c_b = eng.commit({5: 55})
+    prove = [(c_a, ft_a, 1, 11), (c_a, ft_a, 3, 0), (c_b, ft_b, 5, 55)]
+    d, pi = kzg.prove_multi(prove)
+    ok_set = [(c_a, 1, 11), (c_a, 3, 0), (c_b, 5, 55)]
+    assert kzg.verify_multi(ok_set, d, pi)
+    # wrong value / wrong slot / swapped values / mangled points: all False
+    assert not kzg.verify_multi([(c_a, 1, 12), (c_a, 3, 0),
+                                 (c_b, 5, 55)], d, pi)
+    assert not kzg.verify_multi([(c_a, 2, 11), (c_a, 3, 0),
+                                 (c_b, 5, 55)], d, pi)
+    assert not kzg.verify_multi([(c_a, 1, 55), (c_a, 3, 0),
+                                 (c_b, 5, 11)], d, pi)
+    assert not kzg.verify_multi(ok_set, bytes(64), pi)
+    assert not kzg.verify_multi(ok_set, d, d)
+    assert not kzg.verify_multi(ok_set, d[:7], pi)
+    assert not kzg.verify_multi([], d, pi)          # empty set fails closed
+    # transcripts bind the ORDER of openings
+    assert not kzg.verify_multi(list(reversed(ok_set)), d, pi)
+
+
+# --- VerkleState behaviors ---------------------------------------------------
+
+def test_verkle_set_get_remove_and_heads():
+    st = make_state("verkle")
+    assert commitment_backend_of(st) == BACKEND_VERKLE
+    st.set(b"a", b"1")
+    st.set(b"b", b"2")
+    root1 = st.head_hash
+    st.commit(root1)
+    assert st.get(b"a") == b"1" and st.get(b"b", committed=False) == b"2"
+    # uncommitted write is invisible to committed reads, revert drops it
+    st.set(b"c", b"3")
+    assert st.get(b"c", committed=True) is None
+    assert st.get(b"c", committed=False) == b"3"
+    st.revert_to_head()
+    assert st.get(b"c", committed=False) is None
+    assert st.head_hash == root1
+    # remove + re-add round-trips the root exactly (content-addressed)
+    st.set(b"c", b"3")
+    root2 = st.head_hash
+    st.commit(root2)
+    assert st.remove(b"c") and not st.remove(b"c")
+    assert st.head_hash == root1
+    st.set(b"c", b"3")
+    assert st.head_hash == root2
+    assert st.as_dict(committed=False) == {b"a": b"1", b"b": b"2",
+                                           b"c": b"3"}
+
+
+def test_verkle_historic_roots_and_persistence():
+    db = KvMemory()
+    st = make_state("verkle", db=db)
+    st.set(b"k", b"v1")
+    r1 = st.head_hash
+    st.commit(r1)
+    st.set(b"k", b"v2")
+    r2 = st.head_hash
+    st.commit(r2)
+    assert st.get_for_root(b"k", r1) == b"v1"
+    assert st.get_for_root(b"k", r2) == b"v2"
+    # a fresh instance over the same db resumes at the committed head
+    st2 = make_state("verkle", db=db)
+    assert st2.committed_head_hash == r2
+    assert st2.get(b"k") == b"v2"
+    assert st2.get_for_root(b"k", r1) == b"v1"
+    # proofs generated by the reloaded instance verify at both roots
+    for root, val in ((r1, b"v1"), (r2, b"v2")):
+        p = st2.generate_state_proof(b"k", root_hash=root, serialize=True)
+        assert VerkleState.verify_state_proof(root, b"k", val, p)
+        assert not VerkleState.verify_state_proof(
+            root, b"k", b"other", p)
+
+
+def test_verkle_roots_deterministic_across_instances_and_orders():
+    a = make_state("verkle")
+    b = make_state("verkle")
+    keys = [(b"k%03d" % i, b"v%03d" % i) for i in range(60)]
+    for k, v in keys:
+        a.set(k, v)
+    for k, v in reversed(keys):
+        b.set(k, v)
+    assert a.head_hash == b.head_hash
+
+
+@pytest.mark.parametrize("width", [16, 64, 256])
+def test_verkle_widths_prove_and_fail_closed(width):
+    st = make_state("verkle", width=width)
+    for i in range(40):
+        st.set(b"w%d" % i, b"val%d" % i)
+    root = st.head_hash
+    st.commit(root)
+    page = [b"w3", b"w17", b"nope"]
+    proof = st.batch_open(page)
+    assert proof["width"] == width
+    good = [(b"w3", b"val3"), (b"w17", b"val17"), (b"nope", None)]
+    assert VerkleState.verify_batch_proof(root, good, proof)
+    # splice: one value swapped inside the aggregated answer
+    spliced = [(b"w3", b"val17"), (b"w17", b"val3"), (b"nope", None)]
+    assert not VerkleState.verify_batch_proof(root, spliced, proof)
+    # claimed-present for an absent key / claimed-absent for a present one
+    assert not VerkleState.verify_batch_proof(
+        root, [(b"w3", b"val3"), (b"w17", b"val17"), (b"nope", b"x")],
+        proof)
+    assert not VerkleState.verify_batch_proof(
+        root, [(b"w3", None), (b"w17", b"val17"), (b"nope", None)], proof)
+    # wrong root anchor
+    assert not VerkleState.verify_batch_proof(bytes(32), good, proof)
+
+
+def test_verkle_absence_via_other_stem_is_sound():
+    """A slot occupied by a DIFFERENT key's leaf proves absence only
+    when the occupying stem shares the walked path; a forged 'other'
+    terminal citing an unrelated stem must fail."""
+    st = make_state("verkle", width=16)
+    st.set(b"occupant", b"val")
+    root = st.head_hash
+    st.commit(root)
+    # find a key whose first chunk collides with the occupant's
+    occ_stem = stem_of(b"occupant")
+    probe = None
+    for i in range(4096):
+        k = b"probe%d" % i
+        s = stem_of(k)
+        if s[0] >> 4 == occ_stem[0] >> 4 and s != occ_stem:
+            probe = k
+            break
+    assert probe is not None
+    proof = st.batch_open([probe])
+    assert proof["keys"][0]["term"][0] == "other"
+    assert VerkleState.verify_batch_proof(root, [(probe, None)], proof)
+    # tamper the cited other-stem to something off-path: must fail
+    bad = unpack(pack(proof))
+    bad["keys"][0]["term"][1] = stem_of(b"unrelated")
+    assert not VerkleState.verify_batch_proof(root, [(probe, None)], bad)
+    # or to the probe's own stem (claiming the key is its own absence)
+    bad2 = unpack(pack(proof))
+    bad2["keys"][0]["term"][1] = stem_of(probe)
+    assert not VerkleState.verify_batch_proof(root, [(probe, None)], bad2)
+
+
+def test_verkle_lied_width_cannot_prove_false_absence():
+    """The width-forgery the first review round caught: claiming a
+    NARROWER width remaps a present key's root slot (chunk() of the top
+    stem bits) onto a slot that is genuinely empty at the true width —
+    so an ``empty`` terminal opens f(z)=0 with a GENUINE opening, no tau
+    knowledge needed. The anchor binds the width precisely to kill this:
+    the forged proof's recomputed root anchor no longer matches the
+    signed one."""
+    st = make_state("verkle", width=256)
+    for i in range(8):
+        st.set(b"wf%d" % i, b"val%d" % i)
+    root = st.head_hash
+    st.commit(root)
+    target = b"wf3"
+    honest = st.batch_open([target])
+    root_c = honest["commitments"][0]
+    eng = engine_for(256)
+    # the forgery: width=2 ⇒ chunk(stem, 0) is the stem's top bit
+    top_bit = stem_of(target)[0] >> 7
+    ft = st._root.f_tau if st._root.f_tau is not None \
+        else eng.f_tau(st._evals_of(st._root))
+    d, pi = kzg.prove_multi([(root_c, ft, top_bit, 0)])
+    forged = {"width": 2, "commitments": [root_c],
+              "keys": [{"path": [[0, top_bit]], "term": ["empty"]}],
+              "d": d, "pi": pi}
+    # sanity: the opening itself is genuine — f(top_bit) really is 0
+    # at the true width-256 tree (slots 0/1 are empty for these stems)
+    assert kzg.verify_multi([(root_c, top_bit, 0)], d, pi)
+    # ...but the proof must NOT verify absence of the present key
+    assert not VerkleState.verify_batch_proof(root, [(target, None)],
+                                              forged)
+    # and the honest proof still does
+    assert VerkleState.verify_batch_proof(root, [(target, b"val3")],
+                                          honest)
+
+
+def test_verkle_empty_tree_roundtrip():
+    st = make_state("verkle")
+    blank = st.head_hash
+    assert blank == st.blank_root
+    st.commit(blank)
+    proof = st.batch_open([b"anything"])
+    assert VerkleState.verify_batch_proof(blank, [(b"anything", None)],
+                                          proof)
+    assert not VerkleState.verify_batch_proof(
+        blank, [(b"anything", b"forged")], proof)
+
+
+# --- interface conformance ---------------------------------------------------
+
+INTERFACE = ("set", "remove", "get", "get_for_root", "as_dict", "commit",
+             "revert_to_head", "generate_state_proof", "batch_open",
+             "verify_state_proof", "verify_batch_proof", "close")
+
+
+@pytest.mark.parametrize("backend", [BACKEND_MPT, BACKEND_VERKLE])
+def test_backend_conformance(backend):
+    """Both backends expose the full StateCommitment surface and agree
+    on its semantics (the duck-typing enforcement the interface
+    docstring promises)."""
+    st = make_state(backend)
+    for name in INTERFACE:
+        assert callable(getattr(st, name)), f"{backend} missing {name}"
+    assert hasattr(st, "head_hash") and hasattr(st, "committed_head_hash")
+    assert hasattr(st, "kv")
+    assert commitment_backend_of(st) == backend
+    st.set(b"x", b"1")
+    root = st.head_hash
+    st.commit(root)
+    assert st.committed_head_hash == root
+    assert st.get(b"x") == b"1" and st.get(b"absent") is None
+    assert st.as_dict(committed=True) == {b"x": b"1"}
+    cls = type(st)
+    single = st.generate_state_proof(b"x", serialize=True)
+    assert cls.verify_state_proof(root, b"x", b"1", single)
+    assert not cls.verify_state_proof(root, b"x", b"2", single)
+    assert not cls.verify_state_proof(root, b"x", b"1", b"\xff\x00junk")
+    page = st.batch_open([b"x", b"absent"])
+    assert cls.verify_batch_proof(root, [(b"x", b"1"), (b"absent", None)],
+                                  page)
+    assert not cls.verify_batch_proof(root, [(b"x", b"1"),
+                                             (b"absent", b"forged")],
+                                      page)
+    assert not cls.verify_batch_proof(root, [(b"x", b"1")], page)
+
+
+def test_make_state_rejects_unknown_backend():
+    with pytest.raises(ValueError):
+        make_state("merkle-patricia-2000")
+
+
+# --- pipeline commitment wave kind ------------------------------------------
+
+def test_pipeline_cmt_lane_dedup_and_cache():
+    from plenum_tpu_torch.parallel.pipeline import CryptoPipeline
+    pipe = CryptoPipeline(CpuEd25519Verifier(), config=Config())
+    job = ("commit", 16, ((2, 123), (7, 456)))
+    t1 = pipe.submit_commitment([job, job])         # in-window dup
+    out1 = pipe.collect_commitment(t1)
+    assert out1[0] == out1[1] and out1[0] is not None
+    assert pipe.stats["cmt_unique"] == 1
+    t2 = pipe.submit_commitment([job])              # cross-flush cache hit
+    out2 = pipe.collect_commitment(t2)
+    assert out2[0] == out1[0]
+    assert pipe.stats["cache_hits"] >= 1
+    # the result matches the engine exactly (a hit can never change it)
+    assert out1[0] == engine_for(16).commit({2: 123, 7: 456})
+    assert pipe.summary()["cmt"]["batches"] >= 2
+
+
+def test_pipeline_cmt_engine_failure_degrades_not_raises():
+    from plenum_tpu_torch.parallel.pipeline import CryptoPipeline
+
+    class Wedged:
+        def run_jobs(self, jobs):
+            raise RuntimeError("device wedged")
+
+    pipe = CryptoPipeline(CpuEd25519Verifier(), config=Config(),
+                          cmt_inner=Wedged())
+    st = make_state("verkle", db=KvMemory(), pipeline=pipe)
+    st.set(b"k", b"v")
+    root = st.head_hash
+    st.commit(root)
+    p = st.generate_state_proof(b"k", serialize=True)
+    assert VerkleState.verify_state_proof(root, b"k", b"v", p)
+    assert pipe.stats["cmt_batches"] >= 1
+
+
+def test_cohosted_states_dedup_recommits_through_ring():
+    """Co-hosted nodes committing the same batch to the same state stage
+    identical recommit jobs — the ring answers one per distinct vector."""
+    from plenum_tpu_torch.parallel.pipeline import CryptoPipeline
+    pipe = CryptoPipeline(CpuEd25519Verifier(), config=Config())
+    states = [make_state("verkle", db=KvMemory(), pipeline=pipe)
+              for _ in range(3)]
+    for st in states:
+        for i in range(30):
+            st.set(b"d%d" % i, b"v%d" % i)
+    roots = {st.head_hash for st in states}
+    assert len(roots) == 1
+    # replicas 2 and 3 rode the cache: unique jobs ~ one replica's share
+    assert pipe.stats["cmt_unique"] * 2 <= pipe.stats["cmt_items"]
