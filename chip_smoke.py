@@ -14,10 +14,16 @@ drives the port's paths on the card:
      also at the batch's 992 leaves and at 1, 5 and 33 messages of 1-9
      blocks, against hashlib too; K2's wave at N = 2 ... 262,144 under
      five offset patterns, one k_merkle_wave launch up to 1,024 leaves
-     and one k_merkle_wave_tiled launch beyond, no k_merkle_level; K7 at
+     and one k_merkle_wave_tiled launch beyond, no k_sha256_interior; K7 at
      N = 2 ... 262,144 (one launch up to 512 leaves, two beyond); then
      the wave at alternating sizes queued back to back (a stale arrival
-     counter would show as a wrong level);
+     counter would show as a wrong level); the interior hash at 1, 3,
+     31, 33, 1,025 and 2,049 pairs, as two tensors and as a level's
+     shifted pairing (offset 0 and 1), at every block size and both
+     block-2 schedules, one launch a call, and one call traced as one
+     kernel with no copy beside it; K8 at 1, 3, 31, 33, 1,025 and 2,049
+     columns, k = 0, 1 and 254, on 1, 2 and 4 lanes a column at 32, 64
+     and 128 threads a block;
   2. path A, slice 1, end to end: 1,000 signed NYM requests
      (Max3PCBatchSize) from 1,000 DIDs, 8 of them corrupted,
      authenticated through make_verifier("cuda"); the accepted requests'
@@ -25,11 +31,11 @@ drives the port's paths on the card:
      100,003 txns; then one catchup-scale append_batch of 65,536 txns at
      default thresholds (one k_merkle_wave_tiled launch), and one of
      4,096 txns on a hasher that declines the fused wave (its two widest
-     levels one k_merkle_level launch each). Roots must equal a hashlib
+     levels one k_sha256_interior launch each). Roots must equal a hashlib
      ledger's fed the same txns, proofs must verify; each batch must take
      2 K1 and 2 k_merkle_wave launches and no other SHA-256 launch, the
      path 4 K1, 2 k_merkle_wave, 1 k_merkle_wave_tiled and 2
-     k_merkle_level;
+     k_sha256_interior;
   3. path B, the sharded crypto plane (slice 2): the same 1,000 requests
      through make_verifier("cuda-sharded") by the byte dispatch and by the
      limb dispatch (cold, then warm key cache); ShardedCryptoPlane over a
@@ -87,15 +93,19 @@ drives the port's paths on the card:
   7. times: per kernel, the median of CUDA-event-timed launches after
      warm-up, its plain version's time, and its bound on this card (K3-K6,
      one quad of four threads per item, at 32, 64 and 128 threads per
-     block, each result held to the default's; the plane's steps also
-     with every kernel's plain version in its place); for the SHA-256 kernels
-     also the device time that torch.profiler traces and the chain floor
-     (the device time of one message alone; for K2 and K7 one level's
-     device time plus, per further level, the slope of device time over
-     waves of 1-5 levels); the tiled wave at 2,048 and 65,536 leaves; a
-     wave as one k_merkle_level launch per level;
-     the inversion's share of K4; the plane's steps and the sharded
-     batches.
+     block; the interior hash at 32, 64 and 128 threads a block with
+     block 2's schedule expanded or from its table; K8 on 1, 2 and 4
+     lanes a column at 32, 64 and 128; each result held to the
+     default's, each setting's device time taken twice in turns; the
+     plane's steps also with every kernel's plain version in its place);
+     for the SHA-256 kernels and K8 also the device time that
+     torch.profiler traces and the chain floor (the device time of one
+     message, pair or column alone, K8's on each design; for K2 and K7
+     one level's device time plus, per further level, the slope of
+     device time over waves of 1-5 levels); the tiled wave at 2,048 and
+     65,536 leaves; a wave as one k_sha256_interior launch per level;
+     the inversion's share of K4 (and the same chain on K8's design);
+     the plane's steps and the sharded batches.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails if a kernel of that path was never launched.
@@ -107,14 +117,15 @@ Prints JSON lines (kernels, paths, device) and, last, one JSON object
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Imports nothing of JAX.
 
-    python3 chip_smoke.py --sha-device-times
+    python3 chip_smoke.py --device-times
 
 only prints the device time and the CUDA-event time of the SHA-256
-kernels of the package beside the script (K1, K2's wave at 1,024, 2,048
-and 65,536 leaves and its level, K7 at 1,024 and 65,536) at the paths'
-shapes, through
-wrappers every version of the port has: a copy of the script in another
-checkout times that checkout's kernels, so two trees compare in one call.
+kernels and K8 of the package beside the script (K1, K2's wave at 1,024,
+2,048 and 65,536 leaves, the interior hash of 1,024 pairs and of one,
+K7 at 1,024 and 65,536, K8 over 2,048 columns and one column, k = 64,
+and over 3,996 columns, k = 254) at the paths' shapes, through wrappers
+every version of the port has: a copy of the script in another checkout
+times that checkout's kernels, so two trees compare in one call.
 """
 from __future__ import annotations
 
@@ -253,6 +264,27 @@ def device_ms(fn, reps: int = 20, tries: int = 3):
     return "not measured: the profiler traced no kernel"
 
 
+def kernels_traced(fn, tries: int = 3) -> list:
+    """The names of what one call of fn ran on the card (kernels, copies
+    and sets), in order, as torch.profiler traced it after one warm call;
+    a trace with nothing in it is taken again, up to tries times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in sorted(
+            prof.events(), key=lambda e: e.time_range.start)
+            if ev.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    raise AssertionError("the profiler traced nothing on the card")
+
+
 def median_ms(fn, reps: int, warm: int = 2) -> float:
     """Median CUDA-event time of one call of fn, ms, after warm calls."""
     import torch
@@ -271,8 +303,8 @@ def median_ms(fn, reps: int, warm: int = 2) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def sha_device_times() -> int:
-    """The --sha-device-times mode (module docstring): two passes of each
+def device_times() -> int:
+    """The --device-times mode (module docstring): two passes of each
     kernel's device time and of its event time (the median of 20 calls),
     ms per call, on inputs made from a seed."""
     import torch
@@ -283,9 +315,15 @@ def sha_device_times() -> int:
     sys.path.insert(0, root)
     import numpy as np
 
+    from plenum_tpu_torch.ops import ed25519 as ed
     from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops.field_chain import field_chain
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
+    cols = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [ed.int_to_limbs(int.from_bytes(rng.bytes(32), "little") % ed.P)
+         for _ in range(3996)]).T)).to(dev)
+    col1, cols2k = cols[:, :1].contiguous(), cols[:, :2048].contiguous()
 
     def words(n):
         return torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, 8),
@@ -303,12 +341,17 @@ def sha_device_times() -> int:
                                                      bounds[:11], offs[:11]),
              "k2_wave_65536": lambda: sha.merkle_wave(leaves, bounds, offs),
              "k2_level_1024_pairs": lambda: sha.hash_interior(wave0, pairs),
+             "k2_level_1_pair": lambda: sha.hash_interior(wave0[:1],
+                                                          pairs[:1]),
+             "k8_2048_columns_64": lambda: field_chain(cols2k, 64),
+             "k8_1_column_64": lambda: field_chain(col1, 64),
+             "k8_3996_columns_254": lambda: field_chain(cols, 254),
              "k7_1024": lambda: sha.merkle_reduce_pow2(wave0),
              "k7_65536": lambda: sha.merkle_reduce_pow2(leaves)}
     times = {k: [device_ms(fn) for _ in range(2)] for k, fn in cases.items()}
     events = {k: [median_ms(fn, 20) for _ in range(2)]
               for k, fn in cases.items()}
-    print(json.dumps({"sha_device_ms": times, "sha_event_ms": events,
+    print(json.dumps({"device_ms": times, "event_ms": events,
                       "tree": root, "gpu": _smi("name,power.limit")}))
     return 0
 
@@ -747,6 +790,7 @@ def main() -> int:
     from plenum_tpu_torch.node.client_authn import CoreAuthNr, ReqAuthenticator
     from plenum_tpu_torch.ops import ed25519 as ed
     from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops import field_chain as fc
     from plenum_tpu_torch.ops.field_chain import field_chain, field_chain_torch
     from plenum_tpu_torch.parallel.crypto_plane import (
         ShardedCryptoPlane, ShardedTorchEd25519Verifier)
@@ -901,7 +945,7 @@ def main() -> int:
             k1_check([rng.bytes(int(rng.integers(lo, hi + 1)))
                       for _ in range(n_e)], f"at {n_e} x {nb} blocks")
 
-    # K2: k_merkle_level on 1,024 pairs, and the wave at N = 2 ... 262,144
+    # K2: k_sha256_interior on 1,024 pairs, and the wave at N = 2 ... 262,144
     # under five offset patterns: one k_merkle_wave launch up to 1,024
     # leaves, one k_merkle_wave_tiled launch beyond
     def rand_words(n):
@@ -910,6 +954,38 @@ def main() -> int:
     left, right = rand_words(1024), rand_words(1024)
     bit_equal("sha256_interior", sha.hash_interior(left, right),
               sha.hash_interior_torch(left, right))
+    # the interior hash at ragged widths (a lone group, a partial warp, a
+    # tail block past 1,024 and 2,048 pairs), by both forms: the two
+    # tensors as they are, and a level's shifted pairing under both
+    # offsets; every block size, one launch a call
+    interior_tpb = sha.INTERIOR_THREADS_PER_BLOCK
+    bound_row = rand_words(1)[0]
+    for n_e in (1, 3, 31, 33, 1025, 2049):
+        l_e, r_e, cur_e = rand_words(n_e), rand_words(n_e), rand_words(2 * n_e)
+        want_pairs = sha.hash_interior_torch(l_e, r_e)
+        want_level = {}
+        for o in (0, 1):
+            sh_ = torch.cat([bound_row[None], cur_e])[1 - o:][:2 * n_e]
+            want_level[o] = sha.hash_interior_torch(sh_[0::2], sh_[1::2])
+        for tpb in (32, 64, 128):
+            sha.INTERIOR_THREADS_PER_BLOCK = tpb
+            before = ops.LAUNCHES["sha256_interior"]
+            bit_equal("sha256_interior", sha.hash_interior(l_e, r_e),
+                      want_pairs)
+            for o in (0, 1):
+                out_e = torch.empty_like(l_e)
+                sha._merkle_level(cur_e, bound_row, torch.tensor(
+                    [o], dtype=torch.int32, device=dev), out_e)
+                bit_equal("sha256_interior", out_e, want_level[o])
+            if ops.LAUNCHES["sha256_interior"] != before + 3:
+                raise AssertionError("sha256_interior: not one launch "
+                                     "a call")
+    sha.INTERIOR_THREADS_PER_BLOCK = interior_tpb
+    # one call is one kernel on the card: no copy beside it
+    traced = kernels_traced(lambda: sha.hash_interior(left, right))
+    if len(traced) != 1 or "k_sha256_interior" not in traced[0]:
+        raise AssertionError(f"hash_interior: want one kernel a call, "
+                             f"traced {traced}")
     bounds18 = rand_words(18)
     for n_w in (2, 4, 32, 512, 1024, 2048, 4096, 65536, 262144):
         depth = n_w.bit_length() - 1
@@ -1100,6 +1176,21 @@ def main() -> int:
         [ed.int_to_limbs(v) for v in chain_vals]).T)).to(dev)
     bit_equal("field_chain", field_chain(chain_x, 64),
               field_chain_torch(chain_x, 64))
+    # K8 at ragged widths (a lone group, a partial warp, a tail block past
+    # 1,024 and 2,048 columns) and k = 0, 1, 254, at every geometry: one
+    # and four lanes a column, 32, 64 and 128 threads a block
+    k8_geometries = [(g_, b_) for g_ in (1, 4) for b_ in (32, 64, 128)]
+    for n_e in (1, 3, 31, 33, 1025, 2049):
+        x_e = torch.from_numpy(np.ascontiguousarray(np.stack(
+            [ed.int_to_limbs(int.from_bytes(rng.bytes(32), "little") % ed.P)
+             for _ in range(n_e)]).T)).to(dev)
+        for k_e in (0, 1, 254):
+            want_e = field_chain_torch(x_e, k_e)
+            for g_, b_ in k8_geometries:
+                before = ops.LAUNCHES["field_chain"]
+                bit_equal("field_chain", field_chain(x_e, k_e, g_, b_), want_e)
+                if ops.LAUNCHES["field_chain"] != before + 1:
+                    raise AssertionError("field_chain: not one launch a call")
     torch.cuda.synchronize()
     phase1_s = time.perf_counter() - t0 - sign_s
 
@@ -1168,7 +1259,7 @@ def main() -> int:
     t_end = time.perf_counter()
     # 4,096 txns more on a hasher that declines the fused wave: the
     # per-level route, hash_children_batch on each level of at least
-    # min_batch pairs (2,048, then 1,024: two k_merkle_level launches)
+    # min_batch pairs (2,048, then 1,024: two k_sha256_interior launches)
     per_level = Ledger(
         tree=CompactMerkleTree(make_tree_hasher("cuda", min_batch=1024,
                                                 fuse_min=1 << 30),
@@ -1195,7 +1286,7 @@ def main() -> int:
                       "ed25519_verify"))
     # each batch wave (staged, then committed) is one k_merkle_wave launch;
     # the 65,536-txn wave one k_merkle_wave_tiled launch; the per-level
-    # append one K1 and two k_merkle_level launches
+    # append one K1 and two k_sha256_interior launches
     sha_counts = {k_: (batch_counts[k_], main_counts[k_])
                   for k_ in ("sha256_words", "merkle_wave",
                              "merkle_wave_tiled", "sha256_interior")}
@@ -1634,12 +1725,15 @@ def main() -> int:
     # SHA-256: thread-instructions per pipe, counted from the SASS. K1 per
     # 64-byte block: one pass of its turn loop (the group's load, one
     # lane's expansion of one block and, counted once, the round loop's
-    # body); K2 and K7 per parent: k_merkle_level, which has no loop
+    # body); K2, K7 and the interior hash per parent: k_interior_yardstick
+    # (never launched: the first, one-thread interior hash,
+    # k_merkle_level, which has no loop)
     sass_k1 = sass_profile(lib_paths["sha256"], "k_sha256_words")
-    sass_k2 = sass_profile(lib_paths["sha256"], "k_merkle_level")
+    sass_k2 = sass_profile(lib_paths["sha256"], "k_interior_yardstick")
     if sass_k2["body"]["all"] or not sass_k1["body"]["all"]:
         raise AssertionError("SHA-256 SASS: want a loop (the blocks) in "
-                             "k_sha256_words and none in k_merkle_level")
+                             "k_sha256_words and none in "
+                             "k_interior_yardstick")
     # Ed25519: only the 32x32->64 multiplies (IMAD.WIDE, two FMA-pipe
     # slots each) are counted; adds and carries are left out, so the
     # bound errs low
@@ -1788,9 +1882,33 @@ def main() -> int:
     # (threads per item, per block), fixed in csrc/sha256.cu and
     # ed25519.cu, but for K3-K6: a quad per item, block size swept
     fixed_geometry = {"sha256_words": (8, 128), "merkle_wave": (1, 512),
-                      "merkle_wave_tiled": (1, 512),
-                      "sha256_interior": (1, 128), "merkle_reduce": (1, 256),
-                      "field_chain": (1, 128)}
+                      "merkle_wave_tiled": (1, 512), "merkle_reduce": (1, 256)}
+    # the swept kernels: their settings, the default, (threads per item,
+    # per block) of a setting, and the row's call at a setting
+    def with_attr(mod, attr, value, fn):
+        """fn run with mod.attr set to value, then set back."""
+        def run():
+            saved = getattr(mod, attr)
+            setattr(mod, attr, value)
+            try:
+                return fn()
+            finally:
+                setattr(mod, attr, saved)
+        return run
+
+    sweeps = {**{kid_: ((32, 64, 128), ed.THREADS_PER_BLOCK,
+                        lambda tpb: (ed.THREADS_PER_ITEM, tpb),
+                        lambda tpb, fn: with_attr(ed, "THREADS_PER_BLOCK",
+                                                  tpb, fn))
+                 for kid_ in ("K3", "K4", "K5", "K6")},
+              "K2L": ((32, 64, 128), sha.INTERIOR_THREADS_PER_BLOCK,
+                      lambda tpb: (sha.INTERIOR_THREADS_PER_ITEM, tpb),
+                      lambda tpb, fn: with_attr(
+                          sha, "INTERIOR_THREADS_PER_BLOCK", tpb, fn)),
+              "K8": (k8_geometries,
+                     (fc.THREADS_PER_ITEM, fc.THREADS_PER_BLOCK),
+                     lambda cfg: cfg,
+                     lambda cfg, fn: lambda: field_chain(chain_x, 64, *cfg))}
     # the SHA-256 kernels' chain floor: one launch plus the chain of its
     # levels. Levels of at most 16 parents run in warp 0 alone, so a wave
     # (or a K7 reduce) over N = 2 ... 32 costs one parent's chain more per
@@ -1813,6 +1931,7 @@ def main() -> int:
         wave_offs[:n_.bit_length() - 1]))
     reduce_sweep = level_sweep(lambda n_: sha.merkle_reduce_pow2(left[:n_]))
     one_message = k1_inputs[0][:1].clone()
+    one_column = chain_x[:, :1].contiguous()
     chain_of = {"sha256_words": lambda levels: device_ms(
                     lambda: sha.sha256_words(one_message)),
                 "merkle_wave": lambda levels: chain_floor(wave_sweep, levels),
@@ -1820,6 +1939,8 @@ def main() -> int:
                                                                 levels),
                 "sha256_interior": lambda levels: device_ms(
                     lambda: sha.hash_interior(left[:1], right[:1])),
+                "field_chain": lambda levels: device_ms(
+                    lambda: field_chain(one_column, 64)),
                 "merkle_reduce": lambda levels: chain_floor(reduce_sweep,
                                                             levels)}
     tiled_sweep = {lv: device_ms(lambda lv=lv: sha.merkle_wave(
@@ -1834,22 +1955,34 @@ def main() -> int:
             return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
         return torch.equal(a, b)
 
+    def sweep(run_at, configs, default):
+        """Each setting's result (run_at(cfg)() runs the kernel at cfg)
+        held to the default's; per setting the median event time and, in
+        turns over the settings, two device times."""
+        want = run_at(default)()
+        ms, dev_ms = {}, {}
+        for cfg in configs:
+            if not same(run_at(cfg)(), want):
+                raise AssertionError(f"another result at {cfg}")
+            ms[str(cfg)] = median_ms(run_at(cfg), 20)
+        for _ in range(2):
+            for cfg in configs:
+                dev_ms.setdefault(str(cfg), []).append(
+                    device_ms(run_at(cfg)))
+        return ms, dev_ms
+
     kernels = []
     for kid, name, src, replaces, fn, plain, (b_ms, b_by), shape in rows:
-        by_block = None
-        if kid in ("K3", "K4", "K5", "K6"):
-            per_item, per_block = ed.THREADS_PER_ITEM, ed.THREADS_PER_BLOCK
-            want = fn()
-            by_block = {}
-            for tpb in (32, 64, 128):
-                ed.THREADS_PER_BLOCK = tpb
-                if not same(fn(), want):
-                    raise AssertionError(f"{name}: another result at {tpb} "
-                                         f"threads per block")
-                by_block[tpb] = median_ms(fn, 20)
-            ed.THREADS_PER_BLOCK = per_block
+        by_setting = dev_by_setting = None
+        if kid in sweeps:
+            configs, default, geometry, at = sweeps[kid]
+            by_setting, dev_by_setting = sweep(
+                lambda cfg, fn=fn: at(cfg, fn), configs, default)
+            per_item, per_block = geometry(default)
+            ms = by_setting[str(default)]
         else:
             per_item, per_block = fixed_geometry[name]
+            ms = median_ms(fn, 20)
         sha_times = {}
         if name in chain_of:
             sha_times = {"device_ms": device_ms(fn), "chain_floor_ms":
@@ -1859,11 +1992,12 @@ def main() -> int:
             "replaces": replaces,
             "launches": path_counts[path_of[kid]][name],
             "max_abs_err": max_err[name],
-            "ms": by_block[per_block] if by_block else median_ms(fn, 20),
+            "ms": ms,
             "plain_ms": median_ms(plain, 3, warm=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "threads_per_item": per_item, "threads_per_block": per_block,
-            "ms_by_threads_per_block": by_block,
+            "ms_by_setting": by_setting,
+            "device_ms_by_setting": dev_by_setting,
             "path": path_of[kid],
             "launches_by_path": {p_: c_[name] for p_, c_ in path_counts.items()},
             "launches_per_1000_txn_batch": batch_counts[name],
@@ -1874,13 +2008,30 @@ def main() -> int:
             **sha_times})
     by_id = {k_["id"]: k_ for k_ in kernels}
     # the inversion's share of K4: 254 squarings in lock-step on each of
-    # K4's 4 x N threads, timed as K8 over 4 N columns (one thread each)
+    # K4's 4 x N threads, timed as K8 over 4 N columns on K4's geometry
+    # (one thread a column, K4's block size); beside it the same chain on
+    # K8's design, what a split inversion would take
     inv_x = chain_x.repeat(1, (4 * n_sigs + 2047) // 2048)[:, :4 * n_sigs] \
         .contiguous()
-    inv_ms = median_ms(lambda: field_chain(inv_x, 254), 20)
+    k4_geometry = (1, ed.THREADS_PER_BLOCK)
+    k8_geometry = (fc.THREADS_PER_ITEM, fc.THREADS_PER_BLOCK)
+    inv = {}
+    for what, geo in (("k4", k4_geometry), ("k8", k8_geometry)):
+        call = lambda geo=geo: field_chain(inv_x, 254, *geo)
+        inv[what] = {"threads_per_item": geo[0], "threads_per_block": geo[1],
+                     "ms": median_ms(call, 20), "device_ms": device_ms(call)}
     print(json.dumps({"inversion_share": {
-        "columns": 4 * n_sigs, "squarings": 254, "k8_ms": inv_ms,
-        "k4_ms": by_id["K4"]["ms"], "share_of_k4": inv_ms / by_id["K4"]["ms"]}}))
+        "columns": 4 * n_sigs, "squarings": 254,
+        "k8_ms": inv["k4"]["ms"], "k4_ms": by_id["K4"]["ms"],
+        "share_of_k4": inv["k4"]["ms"] / by_id["K4"]["ms"],
+        "on_k4_geometry": inv["k4"], "on_k8_design": inv["k8"],
+        "split_share_of_k4": inv["k8"]["ms"] / by_id["K4"]["ms"]}}))
+    # K8's chain floor (one column alone, k = 64) on each design, at the
+    # default block size
+    print(json.dumps({"field_chain_floor_by_threads_per_item": {
+        g_: device_ms(lambda g_=g_: field_chain(one_column, 64, g_,
+                                                fc.THREADS_PER_BLOCK))
+        for g_ in (1, 4)}}))
     print(json.dumps({"bound_basis": {
         "alu_or_fma_pipe_per_s": per_pipe_per_s, "issue_per_s": issue_per_s,
         "sm_clock_mhz": sm_mhz, "clocks_max_sm": max_clock,
@@ -1914,7 +2065,7 @@ def main() -> int:
         "signatures": n_sigs6, "key_rows": n_rows5, "ms": b3_ms,
         "plain_ms": b3_plain,
         "bound_ms": by_id["K5"]["bound_ms"] + by_id["K6"]["bound_ms"]}}))
-    # the wave as one k_merkle_level launch per level (the wave before
+    # the wave as one k_sha256_interior launch per level (the wave before
     # k_merkle_wave), beside k_merkle_wave
     def by_levels():
         flat = torch.empty((1023, 8), dtype=torch.int32, device=dev)
@@ -2057,5 +2208,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(sha_device_times() if sys.argv[1:] == ["--sha-device-times"]
+    sys.exit(device_times() if sys.argv[1:] == ["--device-times"]
              else main())

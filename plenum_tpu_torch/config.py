@@ -378,7 +378,7 @@ class Config:
     OBSERVER_ANCHOR_LAG_MAX: float = 900.0
 
     # --- crypto backend seam: 'cpu' or 'cuda' (the north star switch) ---
-    crypto_backend: str = "cpu"
+    crypto_backend: str = "cuda"
     # Pad/flush knobs of the device batch plane (plenum_tpu/crypto/batch_plane.py)
     CRYPTO_BATCH_MAX: int = 4096
     CRYPTO_BATCH_PAD_POW2: bool = True

@@ -27,8 +27,9 @@
 // limit.
 //
 // Design: K3-K6 run each key or signature on a quad, four adjacent lanes
-// of a warp (fe25519.cuh, "quad point formulas"); K8 one thread per
-// column. Lane c of a quad holds coordinate c (X, Y, Z, T) of the running
+// of a warp (fe25519.cuh, "quad point formulas"); K8 each column on a
+// quad too (fe_sq_lanes below: the lanes split a squaring's products and
+// exchange their sums, every lane carrying all ten), or on one thread. Lane c of a quad holds coordinate c (X, Y, Z, T) of the running
 // point. Every point formula is two stages of four independent field
 // operations: in stage 1 each lane runs one, the quad all-gathers the four
 // results by shuffles, and in stage 2 lane c runs the product that becomes
@@ -65,7 +66,12 @@
 // additions' 2d stage, which would otherwise leave three lanes idle.
 // Left for later: two or more lanes per field multiply (a product's
 // columns split over the quad, then over more lanes), so that more than
-// 125 warps are in flight and the lock-step chains shrink too.
+// 125 warps are in flight and the lock-step chains shrink too. K8 tried
+// it on the squaring: the split shortens each lane's products, but every
+// lane still runs the whole carry and the exchanges add their latency,
+// so a column's chain shrinks by about a tenth (PERF.md). The quads here
+// shuffle under each quad's own mask, which the compiler turns into a
+// loop over the warp's quads around every shuffle (see WarpLanes).
 //
 // Plain C interface (bound with ctypes): each launcher returns
 // cudaGetLastError() right after its launch.
@@ -272,6 +278,94 @@ ED_HD void field_chain_one(const int32_t* x, int32_t* out, int stride, int k) {
   fe_to_limbs13_canon(fe_canon(z), out, stride);
 }
 
+// --- K8 on a quad of lanes per column --------------------------------------
+// Every lane holds the whole carried value f. A squaring's ten column sums
+// t[k] (fe_sq's 55 products) are split so that every lane runs the same
+// instructions on its own operands, with no branch on the lane:
+//
+// Lane parity p computes the coefficients k = 2m + p (slot m = 0..4). Even
+// coefficient 2m is six of fe_sq's products f_i f_j (i <= j, i + j = 2m
+// or 2m + 10); odd coefficient 2m + 1 is exactly the products f_i f_(j+1)
+// of the same (i, j), but for (2m + 1, 9), whose j + 1 = 10 is a zero
+// product on the odd lane. So the odd lane runs the even lane's steps on
+// g[x] = f_(x+1) (g[9] = 0) where the even lane has g[x] = f_x. The factors
+// follow: the 19 of a wrap (i + j >= 10) is the same on both lanes (i + j
+// is even); the 2 of an odd pair (i, j both odd) only on the even lane
+// (a[i] = 2 f_i there for odd i); the 2 of a symmetric pair on both,
+// except on (i, i), a single product on the even lane but the pair
+// (i, i + 1) on the odd one (a[i] (1 + p)). A step multiplies the same
+// sizes as fe_sq's (a at most 4 f, b at most 19 f), so every sum is the
+// same integer as fe_sq's and stays below 2^61.
+//
+// Lane h = lane >> 1 takes steps 3h ... 3h + 2 of each slot (their
+// operands selected on h) and the halves add their sums by one shuffle.
+// The parities then swap their five sums by one more, and every lane
+// carries all ten (fe_from64) itself: the limbs are fe_sq's on every
+// lane, and the next squaring needs no further exchange.
+//
+// The exchange is an object `X` with `lane` and `xor64(v, m)` (v of lane
+// lane ^ m): WarpLanes on the card, HostLanes (host threads meeting at a
+// barrier) when the file is compiled as host C++.
+constexpr int kChainGroup = 4;
+
+template <class X>
+ED_HD fe fe_sq_lanes(const X& xc, const fe& f) {
+  const int p = xc.lane & 1, h = xc.lane >> 1;
+  int32_t a[10], a2[10], ad[10], g[10], g19[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    a[i] = (i & 1) ? f.v[i] * (2 - p) : f.v[i];
+    a2[i] = 2 * a[i];            // a symmetric pair's 2
+    ad[i] = a[i] * (1 + p);      // step (i, i): 1 on the even lane, 2 odd
+    g[i] = p ? (i < 9 ? f.v[i + 1] : 0) : f.v[i];
+    g19[i] = 19 * g[i];
+  }
+  int64_t t[5];
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    t[m] = 0;
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      int32_t av[2], bv[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {        // step s of slot m, half c's
+        const int s = 3 * c + u;
+        const bool low = s <= m;           // i + j = 2m, else 2m + 10
+        const int i = low ? s : m + s;
+        const int j = (low ? 2 * m : 2 * m + 10) - i;
+        av[c] = i == j ? ad[i] : a2[i];
+        bv[c] = low ? g[j] : g19[j];
+      }
+      t[m] += (int64_t)(h ? av[1] : av[0]) * (h ? bv[1] : bv[0]);
+    }
+  }
+  int64_t full[10];
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    t[m] += xc.xor64(t[m], 2);
+    const int64_t o = xc.xor64(t[m], 1);
+    full[2 * m] = p ? o : t[m];
+    full[2 * m + 1] = p ? t[m] : o;
+  }
+  return fe_from64(full);
+}
+
+// One column on a quad: every lane loads and converts the column, runs
+// the k squarings, and stores its share of the 20 limbs (limb i on lane
+// i mod 4; nothing where out is null).
+template <class X>
+ED_HD void field_chain_lanes(const X& xc, const int32_t* x, int32_t* out,
+                             int stride, int k) {
+  fe z = fe_from_limbs13(x, stride);
+  for (int i = 0; i < k; ++i) z = fe_sq_lanes(xc, z);
+  fe c = fe_canon(z);
+  int32_t l[20];
+  fe_to_limbs13_canon(c, l, 1);
+#pragma unroll
+  for (int i = 0; i < 20; ++i)
+    if (out && i % kChainGroup == xc.lane) out[(size_t)i * stride] = l[i];
+}
+
 #ifdef __CUDACC__
 
 // K3-K6 run one item per quad: thread t of the grid is lane t & 3 of item
@@ -347,12 +441,35 @@ k_ed25519_verify_staged(const int32_t* __restrict__ s_digits,
   if (qd.lane == 0) out[i] = ok;
 }
 
+// K8's exchange on the card: xor shuffles inside each quad (width 4)
+// under the whole warp's mask. Every lane of the warp runs every shuffle
+// (no lane leaves early), so each is one instruction: with each quad's
+// own lanes as the mask, the compiler wraps every shuffle in a loop over
+// the warp's distinct masks, one quad after another.
+struct WarpLanes {
+  int lane;
+  __device__ int64_t xor64(int64_t v, int m) const {
+    return __shfl_xor_sync(0xffffffffu, (long long)v, m, kChainGroup);
+  }
+};
+
+// K8: column i on threads G i ... G i + G - 1 of the grid, G = 1 or
+// kChainGroup. Blocks are whole warps; a quad past the last column runs
+// the last column's chain and stores nothing.
+template <int G>
 __global__ void __launch_bounds__(128)
 k_field_chain(const int32_t* __restrict__ x, int32_t* __restrict__ out, int n,
               int k) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  field_chain_one(x + i, out + i, n, k);
+  int i = (int)((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  if constexpr (G == 1) {
+    if (i >= n) return;
+    field_chain_one(x + i, out + i, n, k);
+  } else {
+    bool live = i < n;
+    if (!live) i = n - 1;
+    WarpLanes xc{(int)(threadIdx.x % G)};
+    field_chain_lanes(xc, x + i, live ? out + i : nullptr, n, k);
+  }
 }
 
 // Blocks of `threads` threads (4 to 128, a multiple of 4), four per item.
@@ -410,13 +527,42 @@ extern "C" int ed25519_verify_staged_launch(
   return (int)cudaGetLastError();
 }
 
+// per_item: 1 or 4 lanes per column; threads: 32, 64, 96 or 128 per
+// block. Anything else is refused.
 extern "C" int field_chain_launch(const void* x, void* out, int n, int k,
-                                  void* stream) {
-  const int threads = 128;
-  k_field_chain<<<(n + threads - 1) / threads, threads, 0,
-                  (cudaStream_t)stream>>>((const int32_t*)x, (int32_t*)out, n,
-                                          k);
+                                  int per_item, int threads, void* stream) {
+  if ((per_item != 1 && per_item != kChainGroup) || threads < 32 ||
+      threads > 128 || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  int blocks = (int)(((long long)n * per_item + threads - 1) / threads);
+  auto xs = (const int32_t*)x;
+  auto os = (int32_t*)out;
+  auto st = (cudaStream_t)stream;
+  if (per_item == 1)
+    k_field_chain<1><<<blocks, threads, 0, st>>>(xs, os, n, k);
+  else
+    k_field_chain<kChainGroup><<<blocks, threads, 0, st>>>(xs, os, n, k);
   return (int)cudaGetLastError();
 }
 
+#else
+#include <barrier>
+// K8's exchange on the host: four threads, one per lane, share `slots`;
+// each publishes its value, all meet, each reads its partner's, all meet.
+struct HostLanesSlots {
+  int64_t v[4];
+  std::barrier<>* meet;
+};
+
+struct HostLanes {
+  int lane;
+  HostLanesSlots* s;
+  int64_t xor64(int64_t v, int m) const {
+    s->v[lane] = v;
+    s->meet->arrive_and_wait();
+    int64_t r = s->v[lane ^ m];
+    s->meet->arrive_and_wait();
+    return r;
+  }
+};
 #endif  // __CUDACC__

@@ -7,8 +7,9 @@
 //                          launch of one block (k_merkle_wave); a wider
 //                          wave, up to 2^20 leaves, in one launch of
 //                          aligned tiles (k_merkle_wave_tiled)
-//      merkle_level     <- :123 hash_interior (k_merkle_level, one launch
-//                          with the pairs interleaved, offset 0)
+//      interior hash    <- :123 hash_interior (k_sha256_interior: the
+//                          pairs of two tensors, or a level's shifted
+//                          pairing, in one launch)
 //   K7 merkle_reduce    <- plenum_tpu/ops/sha256.py:129 merkle_reduce_pow2
 //                          (every level of a 512-leaf subtree in one block)
 //
@@ -33,6 +34,19 @@
 // shared-memory load besides the state update. The round chain loses the
 // schedule's two sigmas and three adds, and a batch of N messages runs
 // N kGroup / 32 warps instead of N / 32.
+//
+// The interior hash (k_sha256_interior) runs each parent on a group of
+// kInteriorGroup = 4 lanes in three steps: the lanes copy the pair's 64
+// bytes into shared memory (16 bytes each, one coalesced load per
+// parent); lanes 0 and 1 expand the schedules of the message's two
+// blocks side by side, W[t] + K[t] into shared memory; lane 0 runs both
+// blocks' 128 rounds, each round one shared-memory load besides the
+// state update. (The second block is the right child's last byte, 0x80,
+// zeros and the length, so its schedule could be one of 256 rows of a
+// table; on the H100 reading that row in the rounds was slower than lane
+// 1's expansion, which costs the chain nothing: PERF.md.) One kernel serves hash_interior's two tensors (left, right, stride 1)
+// and a level's pairing (cur, cur + 1 row, stride 2, a bound and a 0/1
+// offset read on the device), with no copy before it.
 //
 // K2's wave and K7 keep a subtree's levels in one block: level 0 reads
 // its children from device memory, every later level ping-pongs between
@@ -198,6 +212,23 @@ HD void merkle_parent_one(const uint32_t* cur, const uint32_t* bound, int off,
   int kl = 2 * j - off, kr = 2 * j + 1 - off;
   const uint32_t* left = kl < 0 ? bound : cur + 8 * kl;
   sha256_interior_one(left, cur + 8 * kr, out);
+}
+
+// The interior hash on a group of lanes (k_sha256_interior). `lr` holds
+// the pair's 16 words, l then r. Block `half` of its message, expanded
+// off the round chain: W[t] + K[t] at wk[t].
+HD void interior_schedule(const uint32_t* lr, int half, uint32_t* wk) {
+  uint32_t w[16];
+  interior_block(lr, lr + 8, half, w);
+  sha256_schedule(w, wk, 1);
+}
+
+// The rounds of both blocks from their expanded schedules -> the parent.
+HD void interior_rounds(const uint32_t* wk1, const uint32_t* wk2,
+                        uint32_t st[8]) {
+  sha256_init(st);
+  sha256_rounds(st, wk1, 1);
+  sha256_rounds(st, wk2, 1);
 }
 
 // A node that another block of this launch stored, read through L2
@@ -376,15 +407,59 @@ k_sha256_words(const uint32_t* __restrict__ msgs, uint32_t* __restrict__ out,
   }
 }
 
-static constexpr int kThreads = 128;
-
-__global__ void k_merkle_level(const uint32_t* __restrict__ cur,
-                               const uint32_t* __restrict__ bound,
-                               const int32_t* __restrict__ off,
-                               uint32_t* __restrict__ out, int n_parents) {
+// Never launched: the first, one-thread interior hash (k_merkle_level), kept
+// under its own name so that chip_smoke.py counts the SHA-256 bounds of
+// K2, K7 and the interior hash on the same work as before (its SASS per
+// parent).
+__global__ void k_interior_yardstick(const uint32_t* __restrict__ cur,
+                                     const uint32_t* __restrict__ bound,
+                                     const int32_t* __restrict__ off,
+                                     uint32_t* __restrict__ out,
+                                     int n_parents) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n_parents) return;
   merkle_parent_one(cur, bound, off[0] & 1, j, out + (size_t)j * 8);
+}
+
+// The interior hash: kInteriorGroup lanes per parent, up to
+// kInteriorThreads / kInteriorGroup parents per block. Parent j hashes
+// rows (left, right) = (j stride - o, j stride - o) of `left` and `right`,
+// o = off[0] & 1 (0 where off is null), the left row `bound` where it is
+// negative: hash_interior's pairs are (left, right, stride 1), a level's
+// (cur, cur + 1 row, stride 2). Per parent in shared memory: the pair's 16
+// words, then W[t] + K[t] of block 1 and block 2; 148 words apart, so the
+// eight parents of a warp read their schedules on eight banks.
+static constexpr int kInteriorGroup = 4;
+static constexpr int kInteriorThreads = 128;
+static constexpr int kInteriorWords = 16 + 2 * 64 + 4;
+
+__global__ void __launch_bounds__(kInteriorThreads)
+k_sha256_interior(const uint32_t* __restrict__ left,
+                  const uint32_t* __restrict__ right, int stride,
+                  const uint32_t* __restrict__ bound,
+                  const int32_t* __restrict__ off,
+                  uint32_t* __restrict__ out, int n) {
+  __shared__ uint4 sh[kInteriorThreads / kInteriorGroup][kInteriorWords / 4];
+  int lane = threadIdx.x % kInteriorGroup, slot = threadIdx.x / kInteriorGroup;
+  int j = blockIdx.x * (blockDim.x / kInteriorGroup) + slot;
+  bool live = j < n;          // no early exit: the warp meets at __syncwarp
+  uint32_t* s = reinterpret_cast<uint32_t*>(sh[slot]);
+  if (live) {                 // lanes 0, 1: l's halves; 2, 3: r's
+    long long row = (long long)j * stride - (off ? off[0] & 1 : 0);
+    const uint32_t* src = lane >= 2 ? right + 8 * row
+                          : row < 0 ? bound : left + 8 * row;
+    sh[slot][lane] = reinterpret_cast<const uint4*>(src)[lane & 1];
+  }
+  __syncwarp();
+  if (live && lane < 2) interior_schedule(s, lane, s + 16 + 64 * lane);
+  __syncwarp();
+  if (live && lane == 0) {
+    uint32_t st[8];
+    interior_rounds(s + 16, s + 80, st);
+    uint4* o = reinterpret_cast<uint4*>(out) + 2 * (size_t)j;
+    o[0] = make_uint4(st[0], st[1], st[2], st[3]);
+    o[1] = make_uint4(st[4], st[5], st[6], st[7]);
+  }
 }
 
 // K2's wave: every level of a wave of n <= 2 kWaveThreads children in one
@@ -482,8 +557,6 @@ k_merkle_reduce(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   if (t < 8) out[(size_t)blockIdx.x * 8 + t] = buf[src * kReduceThreads][t];
 }
 
-static int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
 extern "C" int sha256_words_launch(const void* msgs, void* out, int n,
                                    int nblocks, void* stream) {
   constexpr int per_block = kWordsThreads / kGroup;
@@ -493,12 +566,19 @@ extern "C" int sha256_words_launch(const void* msgs, void* out, int n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int merkle_level_launch(const void* cur, const void* bound,
-                                   const void* off, void* out, int n_parents,
-                                   void* stream) {
-  k_merkle_level<<<blocks_for(n_parents), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)cur, (const uint32_t*)bound, (const int32_t*)off,
-      (uint32_t*)out, n_parents);
+// threads: a multiple of kInteriorGroup up to kInteriorThreads per block
+// (anything else is refused). Every row read is 16-byte aligned.
+extern "C" int sha256_interior_launch(const void* left, const void* right,
+                                      int stride, const void* bound,
+                                      const void* off, void* out, int n,
+                                      int threads, void* stream) {
+  if (threads < kInteriorGroup || threads > kInteriorThreads ||
+      threads % kInteriorGroup)
+    return (int)cudaErrorInvalidValue;
+  int blocks = (int)(((long long)n * kInteriorGroup + threads - 1) / threads);
+  k_sha256_interior<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)left, (const uint32_t*)right, stride,
+      (const uint32_t*)bound, (const int32_t*)off, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
 

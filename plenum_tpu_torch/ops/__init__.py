@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # one counter per kernel, bumped by its wrapper where it launches it
 LAUNCHES: dict[str, int] = {
     "sha256_words": 0,        # K1, csrc/sha256.cu
-    "sha256_interior": 0,     # K2, one level (k_merkle_level), csrc/sha256.cu
+    "sha256_interior": 0,     # the interior hash, csrc/sha256.cu
     "merkle_wave": 0,         # K2, a wave's levels (k_merkle_wave), csrc/sha256.cu
     "merkle_wave_tiled": 0,   # K2, a wide wave's levels (k_merkle_wave_tiled)
     "ed25519_decompress": 0,  # K3, csrc/ed25519.cu

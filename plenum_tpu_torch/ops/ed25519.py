@@ -526,7 +526,7 @@ def lib() -> ctypes.CDLL:
         cdll.ed25519_quarter_tables_launch.argtypes = [vp, vp, ci, ci, vp]
         cdll.ed25519_verify_staged_launch.argtypes = [vp, vp, vp, vp, vp, vp,
                                                      vp, vp, ci, ci, ci, vp]
-        cdll.field_chain_launch.argtypes = [vp, vp, ci, ci, vp]
+        cdll.field_chain_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp]
         for fn in (cdll.ed25519_decompress_launch, cdll.ed25519_verify_launch,
                    cdll.ed25519_quarter_tables_launch,
                    cdll.ed25519_verify_staged_launch, cdll.field_chain_launch):

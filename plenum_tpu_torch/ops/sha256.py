@@ -152,12 +152,17 @@ def merkle_reduce_pow2_torch(leaf_digests: torch.Tensor) -> torch.Tensor:
 # --- kernel wrappers (csrc/sha256.cu) --------------------------------------
 
 _CONFIGURED = False
-_ZERO_OFF: dict = {}
 _ARRIVALS: dict = {}
 _REDUCE_LEAVES = 512      # leaves one K7 block reduces (csrc/sha256.cu)
 WAVE_THREADS = 512        # k_merkle_wave's block: parents of its widest level
 TILE_LEVELS = 10          # levels of one k_merkle_wave_tiled tile
 TILED_MAX = 2 * WAVE_THREADS << TILE_LEVELS   # its widest wave, 2^20 leaves
+# the interior hash (k_sha256_interior) runs each parent on 4 lanes, in
+# blocks of INTERIOR_THREADS_PER_BLOCK threads (a multiple of 4, at most
+# 128; read at every launch). On the H100 128 threads were the fastest;
+# chip_smoke.py times every setting
+INTERIOR_THREADS_PER_ITEM = 4
+INTERIOR_THREADS_PER_BLOCK = 128
 
 
 def _lib() -> ctypes.CDLL:
@@ -166,12 +171,13 @@ def _lib() -> ctypes.CDLL:
     if not _CONFIGURED:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.sha256_words_launch.argtypes = [vp, vp, ci, ci, vp]
-        lib.merkle_level_launch.argtypes = [vp, vp, vp, vp, ci, vp]
+        lib.sha256_interior_launch.argtypes = [vp, vp, ci, vp, vp, vp, ci,
+                                               ci, vp]
         lib.merkle_wave_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
         lib.merkle_wave_tiled_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp,
                                                  vp]
         lib.merkle_reduce_launch.argtypes = [vp, vp, ci, vp]
-        for fn in (lib.sha256_words_launch, lib.merkle_level_launch,
+        for fn in (lib.sha256_words_launch, lib.sha256_interior_launch,
                    lib.merkle_wave_launch, lib.merkle_wave_tiled_launch,
                    lib.merkle_reduce_launch):
             fn.restype = ci
@@ -191,25 +197,61 @@ def _arrivals(device: torch.device, stream: int) -> torch.Tensor:
     return c
 
 
-def _zero_off(device: torch.device) -> torch.Tensor:
-    """A 0 offset flag on the device: pairs are rows (2j, 2j + 1)."""
-    z = _ZERO_OFF.get(device)
-    if z is None:
-        z = _ZERO_OFF[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return z
+def _check_digests(name: str, *tensors: torch.Tensor) -> None:
+    """int32[N, 8] digests, all on one device."""
+    for t in tensors:
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 8:
+            raise ValueError(f"{name}: want int32[N, 8] digests, got "
+                             f"{t.dtype}{list(t.shape)}")
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: digests on {tensors[0].device} and "
+                             f"{t.device}")
+
+
+def _check_rows(name: str, *tensors: torch.Tensor) -> None:
+    """The interior kernel's rows: digests (as _check_digests) on a CUDA
+    device, contiguous, each starting on a 16-byte boundary (it loads
+    16-byte halves)."""
+    _check_digests(name, *tensors)
+    ops.require_cuda(name, *tensors)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the kernel loads 16-byte halves; rows "
+                         f"must start on a 16-byte boundary")
+
+
+def _interior_launch(left: torch.Tensor, right_ptr: int, stride: int,
+                     bound: torch.Tensor | None, off: torch.Tensor | None,
+                     out: torch.Tensor) -> torch.Tensor:
+    """One k_sha256_interior launch over out's rows (see csrc/sha256.cu)."""
+    if out.shape[0]:
+        ops.checked(_lib().sha256_interior_launch(
+            ops.ptr(left), ctypes.c_void_p(right_ptr), stride,
+            None if bound is None else ops.ptr(bound),
+            None if off is None else ops.ptr(off), ops.ptr(out),
+            out.shape[0], INTERIOR_THREADS_PER_BLOCK,
+            ops.stream_handle(out.device)), "sha256_interior")
+        ops.count("sha256_interior")
+    return out
 
 
 def _merkle_level(cur: torch.Tensor, bound: torch.Tensor, off: torch.Tensor,
                   out: torch.Tensor) -> torch.Tensor:
-    """One k_merkle_level launch: parent j (of out's rows) hashes shifted
-    rows (2j, 2j + 1) of cur, where shifted[k] = bound if k - off < 0 else
-    cur[k - off] and off is the 0/1 flag read from device memory."""
-    if out.shape[0]:
-        ops.checked(_lib().merkle_level_launch(
-            ops.ptr(cur), ops.ptr(bound), ops.ptr(off), ops.ptr(out),
-            out.shape[0], ops.stream_handle(cur.device)), "sha256_interior")
-        ops.count("sha256_interior")
-    return out
+    """One interior-hash launch over a level: parent j (of out's rows)
+    hashes shifted rows (2j, 2j + 1) of cur, where shifted[k] = bound if
+    k - off < 0 else cur[k - off] and off is the 0/1 flag read from device
+    memory. cur int32[2 len(out) or more, 8], bound int32[8]."""
+    if bound.shape != (8,):
+        raise ValueError(f"sha256_interior: want bound int32[8], got "
+                         f"{list(bound.shape)}")
+    _check_rows("sha256_interior", cur, bound.view(1, 8), out)
+    if off.dtype != torch.int32 or off.device != cur.device or \
+            not off.numel():
+        raise ValueError("sha256_interior: off must be an int32 flag on "
+                         "the rows' device")
+    if cur.shape[0] < 2 * out.shape[0]:
+        raise ValueError(f"sha256_interior: {out.shape[0]} parents need "
+                         f"{2 * out.shape[0]} rows, got {cur.shape[0]}")
+    return _interior_launch(cur, cur.data_ptr() + 32, 2, bound, off, out)
 
 
 def _check_words(t: torch.Tensor, name: str) -> None:
@@ -242,16 +284,18 @@ def sha256_words(msgs: torch.Tensor) -> torch.Tensor:
 
 
 def hash_interior(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """Batched interior-node hash: int32[N, 8] x int32[N, 8] -> int32[N, 8]."""
-    _check_words(left, "hash_interior")
-    _check_words(right, "hash_interior")
+    """Batched interior-node hash: int32[N, 8] x int32[N, 8] -> int32[N, 8].
+    On CUDA tensors: one k_sha256_interior launch on the two tensors as
+    they are (contiguous, 16-byte aligned)."""
+    _check_digests("hash_interior", left, right)
+    if left.shape != right.shape:
+        raise ValueError(f"hash_interior: {list(left.shape)} lefts, "
+                         f"{list(right.shape)} rights")
     if not left.is_cuda:
         return hash_interior_torch(left, right)
-    ops.require_cuda("sha256_interior", left, right)
-    n = left.shape[0]
-    pairs = torch.stack((left, right), dim=1).reshape(2 * n, 8)
-    out = torch.empty((n, 8), dtype=torch.int32, device=left.device)
-    return _merkle_level(pairs, pairs, _zero_off(left.device), out)
+    _check_rows("sha256_interior", left, right)
+    out = torch.empty_like(left)
+    return _interior_launch(left, right.data_ptr(), 1, None, None, out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,6 +9,8 @@ held against the plain version on the card (marked `gpu`).
 """
 import importlib.util
 import os
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +102,85 @@ def test_cpu_tensors_launch_nothing_and_shapes_are_checked():
         field_chain(torch.zeros((20, 4), dtype=torch.int64), 3)
 
 
+@pytest.mark.parametrize("per_item, per_block", [
+    (3, 32), (0, 32), (8, 32), (4, 48), (2, 32), (1, 0), (4, 256)])
+def test_geometry_is_checked(per_item, per_block):
+    """1 or 4 lanes a column in blocks of whole warps up to 128
+    threads; anything else raises before any launch."""
+    with pytest.raises(ValueError, match="lanes per column"):
+        field_chain(torch.zeros((20, 4), dtype=torch.int32), 3, per_item,
+                    per_block)
+
+
+@pytest.mark.parametrize("n", [1, 3, 31, 33, 1025, 2049])
+def test_plain_version_at_ragged_widths(n):
+    """The widths that leave a group, a warp and a block partly filled on
+    the card: the plain version against Python's pow, k = 0, 1, 254."""
+    vals = _values(n, 100 + n) if n >= 4 else [P - 1, 2, 2**255 - 20][:n]
+    x = torch.from_numpy(_limb_major(vals))
+    for k in (0, 1, 254):
+        got = field_chain_torch(x, k).numpy()
+        assert int(got.min()) >= 0 and int(got.max()) < 8192
+        assert _col_ints(got) == [pow(v, 2**k, P) for v in vals]
+
+
+_HOST_HARNESS = r"""
+#include "ed25519.cu"
+#include <thread>
+#include <vector>
+// K8 per column as the card runs it: one thread, or four host threads
+// as the lanes of one quad (HostLanes: a barrier for each shuffle)
+extern "C" void host_field_chain(const int32_t* x, int32_t* out, int n,
+                                 int k, int g) {
+  for (int i = 0; i < n; ++i) {
+    if (g == 1) {
+      field_chain_one(x + i, out + i, n, k);
+      continue;
+    }
+    std::barrier<> meet(g);
+    HostLanesSlots slots{{}, &meet};
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < g; ++l)
+      lanes.emplace_back([&, l] {
+        HostLanes xc{l, &slots};
+        field_chain_lanes(xc, x + i, out + i, n, k);
+      });
+    for (auto& t : lanes) t.join();
+  }
+}
+"""
+
+
+def test_lane_groups_match_the_plain_version_as_host_cpp(tmp_path):
+    """csrc/ed25519.cu's K8 functions built as host C++ (g++), a group's
+    lanes as host threads: one thread and a quad per column give the
+    plain version's limbs."""
+    import ctypes
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    src = tmp_path / "k8.cpp"
+    src.write_text(_HOST_HARNESS)
+    so = tmp_path / "libk8.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", "-I", os.path.join(
+                        ROOT, "plenum_tpu_torch", "csrc"),
+                    "-o", str(so), str(src)], check=True, timeout=120)
+    lib = ctypes.CDLL(str(so))
+    lib.host_field_chain.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + \
+        [ctypes.c_int] * 3
+    for n in (1, 3, 5):
+        x = _limb_major(_values(n + 4, n)[-n:])
+        x[:, 0] = 8195                 # carried-form extremes in column 0
+        if n > 1:
+            x[:, 1] = -2
+        for k in (0, 1, 254):
+            want = field_chain_torch(torch.from_numpy(x), k).numpy()
+            for g in (1, 4):
+                out = np.zeros_like(x)
+                lib.host_field_chain(x.ctypes.data, out.ctypes.data, n, k, g)
+                assert np.array_equal(out, want), (n, k, g)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -114,3 +195,23 @@ def test_kernel_matches_plain_version_on_card(cuda_device):
     got = field_chain(x.to(cuda_device), 64)
     assert ops.LAUNCHES["field_chain"] == before + 1
     assert torch.equal(got.cpu(), field_chain_torch(x, 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 31, 33, 1025, 2049])
+def test_kernel_at_ragged_widths_on_card(cuda_device, n):
+    """Every geometry (1 or 4 lanes a column; 32, 64, 128 threads a
+    block) at k = 0, 1, 254, one launch a call, against the plain
+    version; a strided view is refused."""
+    x = torch.from_numpy(_limb_major(_values(n + 4, n)[-n:]))
+    xd = x.to(cuda_device)
+    for k in (0, 1, 254):
+        want = field_chain_torch(x, k)
+        for g in (1, 4):
+            for b in (32, 64, 128):
+                before = ops.LAUNCHES["field_chain"]
+                got = field_chain(xd, k, g, b)
+                assert ops.LAUNCHES["field_chain"] == before + 1
+                assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError):
+        field_chain(torch.cat([xd, xd], 1)[:, ::2], 1)

@@ -6,7 +6,11 @@ every comparison is exact (digests are integers). The port's side runs
 the kernels' plain PyTorch versions on CPU tensors; the kernels themselves
 are held against those plain versions on the card (marked `gpu`).
 """
+import ctypes
 import hashlib
+import os
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +57,122 @@ def test_hash_interior_matches_jax_and_hashlib():
     expect = [hashlib.sha256(b"\x01" + l + r).digest() for l, r in
               zip(port.digests_to_bytes(left), port.digests_to_bytes(right))]
     assert port.digests_to_bytes(got) == expect
+
+
+def _hashlib_interior(left, right):
+    return [hashlib.sha256(b"\x01" + l + r).digest() for l, r in
+            zip(port.digests_to_bytes(left), port.digests_to_bytes(right))]
+
+
+def _level_pairs(cur, bound, off):
+    """A level's shifted pairing: rows (2j, 2j + 1) of [bound] + cur with
+    the bound dropped where off is 0 -> (lefts, rights)."""
+    n = len(cur) // 2
+    shifted = np.concatenate([bound[None], cur])[1 - off:][:2 * n]
+    return shifted[0::2], shifted[1::2]
+
+
+@pytest.mark.parametrize("n", [1, 3, 31, 33, 1025, 2049])
+def test_hash_interior_plain_at_ragged_widths(n):
+    """The widths that leave a group, a warp and a block partly filled on
+    the card: the plain version against hashlib, on two tensors and on a
+    level's shifted pairing under both offsets."""
+    rng = np.random.default_rng(n)
+    left, right = _words(rng, n, 8), _words(rng, n, 8)
+    got = port.hash_interior_torch(_t(left), _t(right))
+    assert port.digests_to_bytes(got) == _hashlib_interior(left, right)
+    cur, bound = _words(rng, 2 * n, 8), _words(rng, 1, 8)[0]
+    for off in (0, 1):
+        lefts, rights = _level_pairs(cur, bound, off)
+        got = port.hash_interior_torch(_t(lefts), _t(rights))
+        assert port.digests_to_bytes(got) == _hashlib_interior(lefts, rights)
+
+
+def test_hash_interior_checks_its_arguments():
+    x = torch.zeros((4, 8), dtype=torch.int32)
+    for bad in (torch.zeros((3, 8), dtype=torch.int32),
+                torch.zeros((4, 8), dtype=torch.int64),
+                torch.zeros((4, 7), dtype=torch.int32),
+                torch.zeros((4, 8), dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError):
+            port.hash_interior(x, bad)
+        with pytest.raises(ValueError):
+            port.hash_interior(bad, x)
+
+
+def test_interior_kernel_rows_are_checked():
+    """What the kernel takes, checked before any launch: contiguous
+    int32[N, 8] rows on one device, each starting on a 16-byte boundary;
+    a level's bound int32[8], an int32 offset flag, 2 rows a parent."""
+    x = torch.zeros((4, 8), dtype=torch.int32)
+    port._check_rows("k", x, x)
+    wide = torch.zeros((4, 16), dtype=torch.int32)
+    for bad in (wide[:, ::2], wide.view(-1)[2:34].view(4, 8),
+                torch.zeros((4, 8), dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError):
+            port._check_rows("k", x, bad)
+    out = torch.empty((2, 8), dtype=torch.int32)
+    off = torch.zeros(1, dtype=torch.int32)
+    for args in ((x, x[0, :4], off, out), (x, x[0], off.long(), out),
+                 (x[:3], x[0], off, out), (x, x[:1], off, out)):
+        with pytest.raises(ValueError):
+            port._merkle_level(*args)
+
+
+_HOST_HARNESS = r"""
+#include "sha256.cu"
+// k_sha256_interior per parent as its lanes run it, one step after the
+// other (each step ends at a __syncwarp on the card): the pair's words,
+// block 1's and block 2's schedules, the rounds
+extern "C" void host_interior(const uint32_t* left, const uint32_t* right,
+                              int stride, const uint32_t* bound, int off,
+                              uint32_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    uint32_t s[16 + 128];
+    long long row = (long long)j * stride - off;
+    const uint32_t* l = row < 0 ? bound : left + 8 * row;
+    for (int i = 0; i < 8; ++i) {
+      s[i] = l[i];
+      s[8 + i] = right[8 * row + i];
+    }
+    for (int lane = 0; lane < 2; ++lane)
+      interior_schedule(s, lane, s + 16 + 64 * lane);
+    interior_rounds(s + 16, s + 80, out + 8 * j);
+  }
+}
+"""
+
+
+def test_interior_steps_match_hashlib_as_host_cpp(tmp_path):
+    """csrc/sha256.cu's interior-hash steps built as host C++ (g++): both
+    forms (two tensors; a level's pairing under both offsets) give
+    hashlib's digests."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    src = tmp_path / "k2.cpp"
+    src.write_text(_HOST_HARNESS)
+    so = tmp_path / "libk2.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-I",
+                    os.path.join(os.path.dirname(port.__file__), "..",
+                                 "csrc"), "-o", str(so), str(src)],
+                   check=True, timeout=120)
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.host_interior.argtypes = [vp, vp, ci, vp, ci, vp, ci]
+    rng = np.random.default_rng(65)
+    for n in (1, 3, 33):
+        left, right = _words(rng, n, 8), _words(rng, n, 8)
+        cur, bound = _words(rng, 2 * n, 8), _words(rng, 1, 8)
+        cases = [(left, right.ctypes.data, 1, 0,
+                  _hashlib_interior(left, right))]
+        for off in (0, 1):
+            cases.append((cur, cur.ctypes.data + 32, 2, off,
+                          _hashlib_interior(*_level_pairs(cur, bound[0], off))))
+        for base, right_ptr, stride, off, want in cases:
+            out = np.zeros((n, 8), dtype=np.uint32)
+            lib.host_interior(base.ctypes.data, right_ptr, stride,
+                              bound.ctypes.data, off, out.ctypes.data, n)
+            assert port.digests_to_bytes(out) == want
 
 
 _WAVE8 = np.random.default_rng(11)
@@ -340,6 +460,39 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 31, 33, 1025, 2049])
+def test_interior_kernel_at_ragged_widths(cuda_device, n):
+    """k_sha256_interior at 32, 64 and 128 threads a block:
+    hash_interior on two tensors
+    and a level's shifted pairing (both offsets), one launch a call,
+    against the plain version; a strided view is refused."""
+    rng = np.random.default_rng(n)
+    left, right = _words(rng, n, 8), _words(rng, n, 8)
+    cur, bound = _words(rng, 2 * n, 8), _words(rng, 1, 8)
+    want = port.hash_interior_torch(_t(left), _t(right))
+    want_level = {off: port.hash_interior_torch(*map(_t, _level_pairs(
+        cur, bound[0], off))) for off in (0, 1)}
+    l, r = port.to_tensor(left, cuda_device), port.to_tensor(right, cuda_device)
+    c, b = port.to_tensor(cur, cuda_device), port.to_tensor(bound, cuda_device)
+    saved = port.INTERIOR_THREADS_PER_BLOCK
+    try:
+        for tpb in (32, 64, 128):
+            port.INTERIOR_THREADS_PER_BLOCK = tpb
+            before = ops.LAUNCHES["sha256_interior"]
+            assert torch.equal(port.hash_interior(l, r).cpu(), want)
+            assert ops.LAUNCHES["sha256_interior"] == before + 1
+            for off in (0, 1):
+                out = torch.empty_like(l)
+                port._merkle_level(c, b[0], torch.tensor(
+                    [off], dtype=torch.int32, device=cuda_device), out)
+                assert torch.equal(out.cpu(), want_level[off])
+    finally:
+        port.INTERIOR_THREADS_PER_BLOCK = saved
+    with pytest.raises(ValueError):
+        port.hash_interior(torch.cat([l, r], 1)[:, ::2], r)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [2, 512, 1024, 65536, 262144])
 def test_merkle_reduce_kernel_matches_plain_version(cuda_device, n):
     """K7: one launch up to 512 leaves, then one more on the block roots
@@ -355,7 +508,8 @@ def test_merkle_reduce_kernel_matches_plain_version(cuda_device, n):
 @pytest.mark.parametrize("n", [2, 32, 1024, 2048, 4096, 65536, 262144])
 def test_merkle_wave_kernel_matches_plain_version(cuda_device, n):
     """K2's wave: one k_merkle_wave launch up to 1,024 leaves, one
-    k_merkle_wave_tiled launch beyond, no k_merkle_level launch."""
+    k_merkle_wave_tiled launch beyond, no interior-hash
+    (k_sha256_interior) launch."""
     depth = n.bit_length() - 1
     rng = np.random.default_rng(n)
     new0, bounds = _words(rng, n, 8), _words(rng, depth, 8)
