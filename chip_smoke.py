@@ -90,7 +90,36 @@ drives the port's paths on the card:
      device busy time, launches, waves, dedup hits, BLS items and
      pairings, the twin's time, and one more batch under cProfile;
      beside them path D's ring batches and path A's batch;
-  7. times: per kernel, the median of CUDA-event-timed launches after
+  7. path F, the 4-node pool (slice 9): four Nodes on one SimNetwork
+     and one QueueTimer ordering signed NYM writes through propagate,
+     PRE-PREPARE/PREPARE/COMMIT, checkpoints and BLS multi-signatures,
+     every client signature authenticated by K3 + K4 on the ring.
+     F1: tools/local_pool.run_load(n_nodes=4, n_txns=300,
+     backend="cuda"), the reference bench's own call, three times; F2:
+     run_load(4, 4000, "cuda", window=1000), a full Max3PCBatchSize
+     flood, twice; each run in turns with its "cpu" twin (the host
+     crypto baseline) on the same host, the ratio of the median TPS
+     printed; then each once more under torch.profiler (the device busy
+     time, and the profiler's cost in TPS) and F2 once under cProfile.
+     Each device run fails unless every txn was ordered, the ledgers
+     agree, the backend state is "ok" with no fallback, deadline miss
+     or device error, no shape went unpinned and K3 + K4 launched in
+     the timed window (the counters are set to 0, and a profiler
+     started, by the ring's pin(), which run_load calls after its
+     warm-up). F3: tools/local_pool.build_pool's four Nodes on one
+     supervised "cuda" ring, each started by convert.bootstrap_from_rows
+     from path E's 100,001-txn domain; after run_load's warm-up (the two
+     smallest buckets, the cmt ladder, one unmeasured batch, pin), 5
+     batches of 1,000 NYMs made as path E makes them (8 corrupted, 2
+     from role-less DIDs), each failing unless every node sent 990
+     Replies, 2 Rejects and 8 NACKs, grew its domain ledger by 990, and
+     the domain, pool and audit ledger roots and the domain and pool
+     state roots are equal across the nodes, with K3 + K4 launched, no
+     fallback and no unpinned shape. Prints TPS, latency, commit
+     stages, the controller's trajectory, the ring's summary, launches
+     per run, the profiled runs' device busy, and per F3 batch the time
+     from submit to the last node's reply beside path E's batches;
+  8. times: per kernel, the median of CUDA-event-timed launches after
      warm-up, its plain version's time, and its bound on this card (K3-K6,
      one quad of four threads per item, at 32, 64 and 128 threads per
      block; the interior hash at 32, 64 and 128 threads a block with
@@ -109,8 +138,8 @@ drives the port's paths on the card:
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails if a kernel of that path was never launched.
-The card's verifiers are bare (a fault raises), but for path D's and
-path E's rings, which are supervised as the reference pool wires them:
+The card's verifiers are bare (a fault raises), but for the rings of
+paths D, E and F, which are supervised as the reference pool wires them:
 those paths fail if the supervisor fell back to the CPU, hedged, or saw
 a device error.
 Prints JSON lines (kernels, paths, device) and, last, one JSON object
@@ -378,56 +407,32 @@ def host_profile(prof: cProfile.Profile) -> dict:
                                             key=lambda kv: -kv[1][2])[:20]]}
 
 
-def replica_path(batch_device, off_card_check) -> dict:
-    """Path E, the replica's execution layer on the device ring (module
-    docstring): four co-hosted replicas and a hashlib twin, built by
-    NodeBootstrap over one genesis (four NODE txns with BLS keys, the
-    trustee and 100,000 NYMs, four of them role-less DIDs with keys from
-    known seeds), run 5 batches of 1,000 NYM requests through
-    authenticate, apply, BLS and commit. Raises on any check that fails;
-    -> the path's record. `batch_device(fn)` runs fn under the device
-    profiler (-> result, wall ms, busy ms, ms by kernel);
-    `off_card_check(what, verifier)` fails if the supervisor routed work
-    off the card."""
-    import numpy as np
+# the sizes of paths E and F (module docstring); a rehearsal on the CPU
+# patches them smaller and F_BACKEND to "torch"
+PREFILL = 100_000
+F_BACKEND = "cuda"
+F1_TXNS, F1_RUNS = 300, 3
+F2_TXNS, F2_WINDOW, F2_RUNS = 4000, 1000, 2
+F3_BATCHES, F3_REQUESTS = 5, 1000
 
-    from plenum_tpu_torch import convert, ops
-    from plenum_tpu_torch.common.node_messages import (DOMAIN_LEDGER_ID,
-                                                       Commit, PrePrepare)
-    from plenum_tpu_torch.common.quorums import Quorums
-    from plenum_tpu_torch.common.request import Request
-    from plenum_tpu_torch.common.serialization import pack, unpack
-    from plenum_tpu_torch.config import Config
-    from plenum_tpu_torch.consensus.bls_bft_replica import BlsBftReplica
-    from plenum_tpu_torch.crypto.bn254 import PAIRING_STATS
+
+def replica_state(names, n_prefill: int, rng) -> dict:
+    """The domain of paths E and F3 (module docstring): a genesis of the
+    pool's NODE
+    txns, the trustee and n_prefill NYMs (4 of them role-less DIDs with
+    keys from known seeds), replayed once into one replica's stores
+    (hashlib, no ring) -> the genesis, the trustee, the role-less
+    signers, the replica's rows (convert.replica_rows) and the seconds
+    each step took."""
+    from plenum_tpu_torch import convert
+    from plenum_tpu_torch.common.node_messages import DOMAIN_LEDGER_ID
     from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
-    from plenum_tpu_torch.crypto.multi_signature import MultiSignature
-    from plenum_tpu_torch.execution import ThreePcBatch
     from plenum_tpu_torch.execution import txn as txn_lib
-    from plenum_tpu_torch.execution.txn import GET_NYM, NYM
-    from plenum_tpu_torch.ledger.ledger import txn_to_leaf
-    from plenum_tpu_torch.native import have_native_bn254
+    from plenum_tpu_torch.execution.txn import NYM
     from plenum_tpu_torch.node.bootstrap import NodeBootstrap
-    from plenum_tpu_torch.ops import ed25519 as ed
-    from plenum_tpu_torch.ops import sha256 as sha
-    from plenum_tpu_torch.parallel.commit_wave import CommitWave
-    from plenum_tpu_torch.parallel.pipeline import make_crypto_pipeline
-    from plenum_tpu_torch.state import rlp
-    from plenum_tpu_torch.state.trie import Trie
-    from plenum_tpu_torch.tools.local_pool import build_genesis, pool_bls_keys
-    from plenum_tpu_torch.utils.base58 import b58decode, b58encode
-
-    if not have_native_bn254():
-        raise AssertionError("path E: the native bn254 library did not "
-                             "build; pure-Python pairings would make every "
-                             "host number of the path meaningless")
-    n_prefill, n_req, n_batches = 100_000, 1000, 5
-    sha_min, bucket = 512, 1024       # path D's ring
-    names = [f"Node{i + 1}" for i in range(4)]
-    rng = np.random.default_rng(20261018)
+    from plenum_tpu_torch.tools.local_pool import build_genesis
+    from plenum_tpu_torch.utils.base58 import b58encode
     perf = time.perf_counter
-
-    # --- genesis: the pool's NODE txns, the trustee, n_prefill NYMs ------
     t0 = perf()
     genesis, trustee = build_genesis(names)
     idle = [Ed25519Signer(seed=(b"path-e-idle-%d" % k).ljust(32, b"\0"))
@@ -445,48 +450,29 @@ def replica_path(batch_device, off_card_check) -> dict:
         txn_lib.set_seq_no(txn, i + 1)
     genesis[DOMAIN_LEDGER_ID] = domain
     genesis_s = perf() - t0
-
-    # one replica's stores from the genesis replay (hashlib, no ring),
-    # the four ring replicas and the twin on copies of them (convert)
     t0 = perf()
     first = NodeBootstrap(names[0], genesis_txns=genesis,
                           crypto_backend="cpu").build()
     replay_s = perf() - t0
-    t0 = perf()
-    rows = convert.replica_rows(first)
-    del first
-    pipe = make_crypto_pipeline(Config(PIPELINE_SHA_MIN_BATCH=sha_min),
-                                "cuda", supervised=True)
-    comps = [convert.bootstrap_from_rows(n, rows, genesis_txns=genesis,
-                                         pipeline=pipe).build()
-             for n in names]
-    twin = convert.bootstrap_from_rows("Twin", rows, genesis_txns=genesis,
-                                       crypto_backend="cpu").build()
-    copy_s = perf() - t0
-    bls_keys = pool_bls_keys(names)
-    blss = []
-    for n, c in zip(names, comps):
-        if c.bls_register.get_key_by_name(n) != bls_keys[n]:
-            raise AssertionError(f"path E: {n}'s BLS key is not the pool "
-                                 f"ledger's")
-        blss.append(BlsBftReplica(
-            node_name=n, bls_signer=c.bls_signer,
-            bls_verifier=pipe.bls_verifier(), key_register=c.bls_register,
-            bls_store=c.bls_store, quorums=Quorums(4)))
-    roots0 = {c.db.get_state(DOMAIN_LEDGER_ID).committed_head_hash
-              for c in comps + [twin]}
-    sizes0 = {c.db.get_ledger(DOMAIN_LEDGER_ID).size for c in comps + [twin]}
-    if len(roots0) != 1 or sizes0 != {n_prefill + 1}:
-        raise AssertionError(f"path E: the replicas start apart: "
-                             f"{len(roots0)} state roots, sizes {sizes0}")
+    return {"genesis": genesis, "trustee": trustee, "idle": idle,
+            "rows": convert.replica_rows(first), "genesis_s": genesis_s,
+            "replay_s": replay_s}
 
-    # --- the requests, as run_load makes them ---------------------------
-    next_user = [0]
+
+def nym_batches(trustee, idle, rng, n_req: int, first_user: int = 0):
+    """The requests of paths E and F3, as run_load makes them ->
+    batch_requests(first_id): n_req NYMs for fresh DIDs, n_req - 2 from
+    the trustee, 8 of them corrupted as in path A, and 2 signed by
+    role-less DIDs -> (requests, expected verdicts, the 2 role-less
+    requests)."""
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
+    from plenum_tpu_torch.execution.txn import NYM
+    from plenum_tpu_torch.ops import ed25519 as ed
+    from plenum_tpu_torch.utils.base58 import b58decode, b58encode
+    next_user = [first_user]
 
     def batch_requests(first_id: int):
-        """n_req NYMs for fresh DIDs: n_req - 2 from the trustee, 8 of
-        them corrupted as in path A, and 2 signed by role-less DIDs ->
-        (requests, expected verdicts, the 2 role-less requests)."""
         reqs = []
         for i in range(n_req - 2):
             user = Ed25519Signer(
@@ -533,6 +519,83 @@ def replica_path(batch_device, off_card_check) -> dict:
             expect.insert(at, True)
             roleless.append(req)
         return reqs, expect, roleless
+    return batch_requests
+
+
+def replica_path(state, batch_device, off_card_check) -> dict:
+    """Path E, the replica's execution layer on the device ring (module
+    docstring): four co-hosted replicas and a hashlib twin, copied from
+    `state` (replica_state: four NODE txns with BLS keys, the trustee and
+    PREFILL NYMs, four of them role-less DIDs with keys from known
+    seeds), run 5 batches of 1,000 NYM requests through authenticate,
+    apply, BLS and commit. Raises on any check that fails; -> the
+    path's record. `batch_device(fn)` runs fn under the device
+    profiler (-> result, wall ms, busy ms, ms by kernel);
+    `off_card_check(what, verifier)` fails if the supervisor routed work
+    off the card."""
+    import numpy as np
+
+    from plenum_tpu_torch import convert, ops
+    from plenum_tpu_torch.common.node_messages import (DOMAIN_LEDGER_ID,
+                                                       Commit, PrePrepare)
+    from plenum_tpu_torch.common.quorums import Quorums
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.common.serialization import pack, unpack
+    from plenum_tpu_torch.config import Config
+    from plenum_tpu_torch.consensus.bls_bft_replica import BlsBftReplica
+    from plenum_tpu_torch.crypto.bn254 import PAIRING_STATS
+    from plenum_tpu_torch.crypto.multi_signature import MultiSignature
+    from plenum_tpu_torch.execution import ThreePcBatch
+    from plenum_tpu_torch.execution import txn as txn_lib
+    from plenum_tpu_torch.execution.txn import GET_NYM
+    from plenum_tpu_torch.ledger.ledger import txn_to_leaf
+    from plenum_tpu_torch.native import have_native_bn254
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.parallel.commit_wave import CommitWave
+    from plenum_tpu_torch.parallel.pipeline import make_crypto_pipeline
+    from plenum_tpu_torch.state import rlp
+    from plenum_tpu_torch.state.trie import Trie
+    from plenum_tpu_torch.tools.local_pool import pool_bls_keys
+
+    if not have_native_bn254():
+        raise AssertionError("path E: the native bn254 library did not "
+                             "build; pure-Python pairings would make every "
+                             "host number of the path meaningless")
+    n_prefill, n_req, n_batches = PREFILL, 1000, 5
+    sha_min, bucket = 512, 1024       # path D's ring
+    names = [f"Node{i + 1}" for i in range(4)]
+    rng = np.random.default_rng(20261020)
+    perf = time.perf_counter
+
+    genesis, trustee, idle, rows = (state["genesis"], state["trustee"],
+                                    state["idle"], state["rows"])
+    t0 = perf()
+    pipe = make_crypto_pipeline(Config(PIPELINE_SHA_MIN_BATCH=sha_min),
+                                "cuda", supervised=True)
+    comps = [convert.bootstrap_from_rows(n, rows, genesis_txns=genesis,
+                                         pipeline=pipe).build()
+             for n in names]
+    twin = convert.bootstrap_from_rows("Twin", rows, genesis_txns=genesis,
+                                       crypto_backend="cpu").build()
+    copy_s = perf() - t0
+    bls_keys = pool_bls_keys(names)
+    blss = []
+    for n, c in zip(names, comps):
+        if c.bls_register.get_key_by_name(n) != bls_keys[n]:
+            raise AssertionError(f"path E: {n}'s BLS key is not the pool "
+                                 f"ledger's")
+        blss.append(BlsBftReplica(
+            node_name=n, bls_signer=c.bls_signer,
+            bls_verifier=pipe.bls_verifier(), key_register=c.bls_register,
+            bls_store=c.bls_store, quorums=Quorums(4)))
+    roots0 = {c.db.get_state(DOMAIN_LEDGER_ID).committed_head_hash
+              for c in comps + [twin]}
+    sizes0 = {c.db.get_ledger(DOMAIN_LEDGER_ID).size for c in comps + [twin]}
+    if len(roots0) != 1 or sizes0 != {n_prefill + 1}:
+        raise AssertionError(f"path E: the replicas start apart: "
+                             f"{len(roots0)} state roots, sizes {sizes0}")
+
+    batch_requests = nym_batches(trustee, idle, rng, n_req)
 
     # --- one batch on the four replicas ---------------------------------
     wave_runs = [0]
@@ -760,11 +823,297 @@ def replica_path(batch_device, off_card_check) -> dict:
         "domain_txns_at_genesis": n_prefill + 1,
         "domain_txns_after": comps[0].db.get_ledger(DOMAIN_LEDGER_ID).size,
         "sha_min_batch": sha_min, "native_bn254": have_native_bn254(),
-        "genesis_s": genesis_s, "genesis_replay_one_replica_s": replay_s,
+        "genesis_s": state["genesis_s"],
+        "genesis_replay_one_replica_s": state["replay_s"],
         "copies_to_4_replicas_and_twin_s": copy_s,
         "batches": batches, "launches": counts,
         "host_profile_one_batch": host_profile(prof),
         "summary": pipe.summary()}
+
+
+class DeviceWindow:
+    """torch.profiler over the card from construction to stop() ->
+    (device busy ms, device ms by name); the busy time is a string
+    saying why where the profiler cannot trace the card."""
+
+    def __init__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+
+    def stop(self):
+        import torch
+        from torch.autograd import DeviceType
+        torch.cuda.synchronize()
+        self._prof.stop()
+        names: dict[str, float] = {}
+        for ev in self._prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                names[ev.name] = (names.get(ev.name, 0.0)
+                                  + ev.time_range.elapsed_us() / 1e3)
+        busy = sum(names.values()) if names else \
+            "not measured: the profiler traced nothing"
+        return busy, names
+
+
+def _require_launched_ed(what: str, counts: dict) -> None:
+    if counts["ed25519_decompress"] < 1 or counts["ed25519_verify"] < 1:
+        raise AssertionError(f"{what}: K3 + K4 were not launched in the "
+                             f"timed window: {counts}")
+
+
+def pool_runs(off_card_check, device_window) -> dict:
+    """Paths F1 and F2 (module docstring): run_load on F_BACKEND through
+    the entry point a user calls, in turns with its `cpu` twin on the
+    same host, then once more under torch.profiler and (F2) once under
+    cProfile. Each device run fails unless every requested txn was
+    ordered, the ledgers agree, the ring's supervisor routed nothing off
+    the card, no shape went unpinned and K3 + K4 launched inside the
+    timed window (the launch counters are set to 0, and the profiler
+    opened, by the ring's pin(), which run_load calls once its warm-up
+    is over). TPS and launches come from the runs without a profiler,
+    the device busy time from the profiled one. `device_window()` -> an
+    object whose stop() gives (busy ms, ms by name)."""
+    from plenum_tpu_torch import ops
+    from plenum_tpu_torch.parallel.pipeline import CryptoPipeline
+    from plenum_tpu_torch.tools.local_pool import run_load
+    real_pin = CryptoPipeline.pin
+    timed: dict = {}
+
+    def pin_then_count(self):
+        real_pin(self)
+        timed["pipe"] = self
+        ops.reset_counts()
+        if timed["profiler"] == "device":
+            timed["window"] = device_window()
+        elif timed["profiler"] is not None:
+            timed["profiler"].enable()
+
+    def brief(r: dict) -> dict:
+        return {k: r.get(k) for k in (
+            "txns_ordered", "txns_requested", "seconds", "tps",
+            "p50_latency_ms", "p99_latency_ms", "ledger_sizes_agree",
+            "backend_state", "crypto_plane", "commit_stage", "controller")}
+
+    def device_run(what: str, n_txns: int, profiler=None, **kw) -> dict:
+        """profiler: None, "device" (torch.profiler) or a cProfile.Profile,
+        either open from pin() to the run's end."""
+        timed.clear()
+        timed["profiler"] = profiler
+        CryptoPipeline.pin = pin_then_count
+        try:
+            r = run_load(4, n_txns, F_BACKEND, **kw)
+        finally:
+            CryptoPipeline.pin = real_pin
+            if isinstance(profiler, cProfile.Profile):
+                profiler.disable()
+        if "pipe" not in timed:
+            raise AssertionError(f"{what}: run_load never pinned its ring")
+        window = timed["window"].stop() if "window" in timed else None
+        counts = dict(ops.LAUNCHES)
+        pipe = timed["pipe"]
+        if r["txns_ordered"] != r["txns_requested"] or \
+                not r["ledger_sizes_agree"]:
+            raise AssertionError(
+                f"{what}: {r['txns_ordered']} of {r['txns_requested']} "
+                f"ordered, ledgers agree: {r['ledger_sizes_agree']}")
+        plane = r.get("crypto_plane") or {}
+        if r.get("backend_state") != "ok" or plane.get("fallback_batches") \
+                or plane.get("deadline_misses"):
+            raise AssertionError(f"{what}: backend {r.get('backend_state')}"
+                                 f", {plane}")
+        off_card_check(what, pipe.verifier())
+        if r["pipeline"]["unpinned_shapes"]:
+            raise AssertionError(f"{what}: {r['pipeline']['unpinned_shapes']}"
+                                 f" unpinned shapes")
+        _require_launched_ed(what, counts)
+        out = {**brief(r), "pipeline": r["pipeline"], "launches": counts}
+        if window is not None:
+            busy, by_name = window
+            out.update({"device_busy_ms": busy, "device_ms_by_name": by_name,
+                        "device_busy_share": busy / (r["seconds"] * 1e3)
+                        if isinstance(busy, float) else busy})
+        return out
+
+    def twin_run(what: str, n_txns: int, **kw) -> dict:
+        r = run_load(4, n_txns, "cpu", **kw)
+        if r["txns_ordered"] != r["txns_requested"] or \
+                not r["ledger_sizes_agree"]:
+            raise AssertionError(f"{what}: the cpu twin ordered "
+                                 f"{r['txns_ordered']} of "
+                                 f"{r['txns_requested']}")
+        return brief(r)
+
+    from plenum_tpu_torch.crypto import ed25519 as ed_crypto
+    # what the cpu twin verifies with on this host
+    out = {"backend": F_BACKEND, "cpu_twin_verifier":
+           "cryptography (C)" if ed_crypto._HAVE_CRYPTOGRAPHY
+           else "pure-Python RFC 8032"}
+    for tag, n_txns, runs, kw in (("F1", F1_TXNS, F1_RUNS, {}),
+                                  ("F2", F2_TXNS, F2_RUNS,
+                                   {"window": F2_WINDOW})):
+        dev, cpu = [], []
+        for i in range(runs):       # in turns: drift on the host hits both
+            dev.append(device_run(f"path {tag} run {i}", n_txns, **kw))
+            cpu.append(twin_run(f"path {tag} twin {i}", n_txns, **kw))
+        med = statistics.median(d["tps"] for d in dev)
+        med_cpu = statistics.median(c["tps"] for c in cpu)
+        profiled = device_run(f"path {tag} under torch.profiler", n_txns,
+                              profiler="device", **kw)
+        out[tag] = {"n_txns": n_txns, **kw, "runs": dev, "cpu_twin": cpu,
+                    "tps_median": med, "cpu_tps_median": med_cpu,
+                    "tps_ratio_to_cpu": med / med_cpu,
+                    "under_torch_profiler": profiled,
+                    "profiler_tps_cost": 1 - profiled["tps"] / med}
+    # where an F2 run's host time goes: one more run, cProfile open from
+    # pin() to its end (it slows every Python call: read shares, not times)
+    prof = cProfile.Profile()
+    r = device_run("path F2 under cProfile", F2_TXNS, profiler=prof,
+                   window=F2_WINDOW)
+    out["F2"]["host_profile_one_run"] = {"tps_under_cprofile": r["tps"],
+                                         **host_profile(prof)}
+    return out
+
+
+def production_pool(off_card_check, batch_device, state) -> dict:
+    """Path F3 (module docstring): tools/local_pool.build_pool's four
+    Nodes on F_BACKEND, each started from a copy of `state`'s domain
+    (replica_state, path E's), fed F3_BATCHES batches of F3_REQUESTS
+    NYMs made as path E makes them. Each batch fails unless every node
+    replied to the F3_REQUESTS - 10 valid requests, NACKed the 8
+    corrupted and rejected the 2 role-less ones, the domain ledger grew
+    by F3_REQUESTS - 10 on every node, and the domain, pool and audit
+    ledger roots and the domain and pool state roots are equal across
+    the nodes; and, over the measured batches, unless the supervisor
+    routed nothing off the card, no shape went unpinned and K3 + K4
+    launched in every batch. `batch_device(fn)` -> (fn(), wall ms, busy
+    ms, ms by name)."""
+    import numpy as np
+
+    from plenum_tpu_torch import ops
+    from plenum_tpu_torch.common.node_messages import (AUDIT_LEDGER_ID,
+                                                       POOL_LEDGER_ID, Reject,
+                                                       RequestNack)
+    from plenum_tpu_torch.tools.local_pool import (build_pool,
+                                                   commit_stage_stats)
+    perf = time.perf_counter
+    genesis = state["genesis"]
+    t0 = perf()
+    (names, nodes, timer, _trustee, replies, Reply, DOMAIN_LEDGER_ID, plane,
+     _net) = build_pool(4, F_BACKEND, genesis=(genesis, state["trustee"]),
+                        rows=state["rows"])
+    pipe = plane._pipeline
+    setup_s = perf() - t0
+    batch_requests = nym_batches(state["trustee"], state["idle"],
+                                 np.random.default_rng(20261019),
+                                 F3_REQUESTS, first_user=10**6)
+    # per node: Replies, Rejects and NACKs since the batch's submit, the
+    # time of the last of them, and how many client messages were read
+    kinds = (Reply, Reject, RequestNack)
+    tallies: dict = {}
+
+    def tally(n):
+        t = tallies[n]
+        for ts, msg, _client in replies[n][t[4]:]:
+            for i, kind in enumerate(kinds):
+                if isinstance(msg, kind):
+                    t[i] += 1
+                    t[3] = ts
+        t[4] = len(replies[n])
+        return tuple(t[:3])
+
+    def prod_all():
+        timer.service()
+        for node in nodes.values():
+            node.prod()
+        plane.flush()
+
+    def roots(n):
+        db = nodes[n].c.db
+        return (db.get_ledger(DOMAIN_LEDGER_ID).root_hash,
+                db.get_ledger(POOL_LEDGER_ID).root_hash,
+                db.get_ledger(AUDIT_LEDGER_ID).root_hash,
+                db.get_state(DOMAIN_LEDGER_ID).committed_head_hash,
+                db.get_state(POOL_LEDGER_ID).committed_head_hash)
+
+    def one_batch(what: str, k: int, timeout: float = 300.0) -> dict:
+        reqs, expect, roleless = batch_requests(k * F3_REQUESTS)
+        want = (sum(expect) - len(roleless), len(roleless),
+                len(expect) - sum(expect))
+        sizes0 = {n: nodes[n].c.db.get_ledger(DOMAIN_LEDGER_ID).size
+                  for n in names}
+        audit0 = nodes[names[0]].c.db.get_ledger(AUDIT_LEDGER_ID).size
+        for n in names:
+            replies[n].clear()
+            tallies[n] = [0, 0, 0, 0.0, 0]
+        t_submit = perf()
+        for req in reqs:
+            d = req.to_dict()
+            for n in names:
+                nodes[n].handle_client_message(d, "f3")
+        deadline = t_submit + timeout
+        while any(tally(n) != want for n in names):
+            if perf() > deadline or any(
+                    a > b for n in names for a, b in zip(tally(n), want)):
+                raise AssertionError(
+                    f"{what}: replies (Reply, Reject, Nack) "
+                    f"{ {n: tally(n) for n in names} }, want {want}")
+            prod_all()
+        last = max(tallies[n][3] for n in names)
+        grown = {n: nodes[n].c.db.get_ledger(DOMAIN_LEDGER_ID).size
+                 - sizes0[n] for n in names}
+        if set(grown.values()) != {want[0]}:
+            raise AssertionError(f"{what}: the domain ledgers grew by "
+                                 f"{grown}, want {want[0]}")
+        if len({roots(n) for n in names}) != 1:
+            raise AssertionError(f"{what}: the nodes' roots differ")
+        return {"submit_to_last_reply_ms": (last - t_submit) * 1e3,
+                "ordered": want[0], "rejected": want[1], "nacked": want[2],
+                "three_pc_batches": nodes[names[0]].c.db.get_ledger(
+                    AUDIT_LEDGER_ID).size - audit0}
+
+    # warm-up as run_load's (held to the reference's code, so it stays
+    # there): the smallest buckets and the cmt ladder, one unmeasured
+    # batch, then pin
+    t0 = perf()
+    pipe.prewarm(pipe.buckets[:2])
+    pipe.prewarm_cmt([1, 2, 4, 8])
+    one_batch("path F3 warm-up", 1)
+    pipe.pin()
+    warm_s = perf() - t0
+    batches = []
+    ops.reset_counts()
+    for k in range(2, 2 + F3_BATCHES):
+        counts0, st0 = dict(ops.LAUNCHES), dict(pipe.stats)
+        rec, wall, busy, by_name = batch_device(
+            lambda: one_batch(f"path F3 batch {k}", k))
+        counts = {k_: ops.LAUNCHES[k_] - counts0[k_] for k_ in ops.LAUNCHES}
+        _require_launched_ed(f"path F3 batch {k}", counts)
+        got = {k_: pipe.stats[k_] - st0[k_] for k_ in pipe.stats}
+        batches.append({**rec, "wall_ms": wall, "device_busy_ms": busy,
+                        "device_ms_by_name": by_name, "launches": counts,
+                        "ed_dispatches": got["dispatches"],
+                        "dedup_hits": got["dedup_hits"],
+                        "pad_items": got["pad_items"],
+                        "dispatched_items": got["dispatched_items"],
+                        "bls_items": got["bls_items"],
+                        "sha_unique": got["sha_unique"]})
+    counts = dict(ops.LAUNCHES)
+    off_card_check("path F3", plane)
+    if pipe.stats["unpinned_shapes"]:
+        raise AssertionError(f"path F3: {pipe.stats['unpinned_shapes']} "
+                             f"unpinned shapes")
+    ctl = getattr(nodes[names[0]], "batch_controller", None)
+    return {"nodes": len(nodes), "requests_per_batch": F3_REQUESTS,
+            "domain_txns_at_start": len(genesis[DOMAIN_LEDGER_ID]),
+            "domain_txns_after": nodes[names[0]].c.db.get_ledger(
+                DOMAIN_LEDGER_ID).size,
+            "setup_s": setup_s, "warm_up_s": warm_s, "batches": batches,
+            "launches": counts, "summary": pipe.summary(),
+            "commit_stage": commit_stage_stats(nodes[names[0]].metrics),
+            "controller": ctl.trajectory() if ctl is not None else None}
 
 
 def main() -> int:
@@ -1411,21 +1760,12 @@ def main() -> int:
         """fn() under torch.profiler (CUDA activity only) -> (its result,
         wall ms, device busy ms, device ms by name); the busy time is a
         string saying why where the profiler cannot trace the card."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        window = DeviceWindow()
+        t = time.perf_counter()
+        out = fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof_:
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        names: dict[str, float] = {}
-        for ev in prof_.events():
-            if ev.device_type == DeviceType.CUDA:
-                names[ev.name] = (names.get(ev.name, 0.0)
-                                  + ev.time_range.elapsed_us() / 1e3)
-        busy = sum(names.values()) if names else \
-            "not measured: the profiler traced nothing"
+        wall = (time.perf_counter() - t) * 1e3
+        busy, names = window.stop()
         return out, wall, busy, names
 
     n_rep = 4
@@ -1686,7 +2026,10 @@ def main() -> int:
 
     # --- path E: the replica's execution layer on the ring (slice 7) -----
     t_e = time.perf_counter()
-    replica = replica_path(batch_device, require_nothing_off_card)
+    # the 100,001-txn domain of paths E and F3, replayed once
+    state = replica_state([f"Node{i + 1}" for i in range(4)], PREFILL,
+                          np.random.default_rng(20261018))
+    replica = replica_path(state, batch_device, require_nothing_off_card)
     replica_counts = replica["launches"]
     require_launched("replica", replica_counts,
                      ("sha256_words", "merkle_wave", "ed25519_decompress",
@@ -1697,6 +2040,25 @@ def main() -> int:
                                       for b_ in ring_batches],
         "path_a_single_replica_batch_wall_ms": (t_commit - t_main) * 1e3})
     print(json.dumps({"replica_path": replica}))
+
+    # --- path F: the 4-node pool on the card (slice 9) --------------------
+    # the entry point a user calls (tools/local_pool.run_load, consensus
+    # end to end: F1 and F2), then four Nodes on path E's domain (F3)
+    t_f = time.perf_counter()
+    pool = pool_runs(require_nothing_off_card, DeviceWindow)
+    pool["F3"] = production_pool(require_nothing_off_card, batch_device,
+                                 state)
+    del state
+    pool_counts = {k_: sum(r_["launches"][k_] for tag in ("F1", "F2")
+                           for r_ in pool[tag]["runs"])
+                   + pool["F3"]["launches"][k_] for k_ in ops.LAUNCHES}
+    require_launched("pool", pool_counts,
+                     ("ed25519_decompress", "ed25519_verify"))
+    pool.update({
+        "path_s": time.perf_counter() - t_f, "launches": pool_counts,
+        "path_e_replica_batch_wall_ms": [
+            b_["wall_ms_4_replicas"] for b_ in replica["batches"]]})
+    print(json.dumps({"pool_path": pool}))
 
     # --- phase 3: times at the slice's shapes ------------------------------
     # the 1,000-request batch's own inputs
@@ -1874,10 +2236,10 @@ def main() -> int:
     path_counts = {"slice": main_counts, "sharded": sharded_counts,
                    "probe": probe_counts, "ring": ring_counts,
                    "ring_sharded": ring_sharded_counts,
-                   "replica": replica_counts}
+                   "replica": replica_counts, "pool": pool_counts}
     path_of = {"K1": "slice", "K2": "slice", "K2T": "slice", "K2L": "slice",
-               "K3": "slice",
-               "K4": "slice", "K5": "sharded", "K6": "sharded",
+               "K3": "pool",
+               "K4": "pool", "K5": "sharded", "K6": "sharded",
                "K7": "sharded", "K8": "probe"}
     # (threads per item, per block), fixed in csrc/sha256.cu and
     # ed25519.cu, but for K3-K6: a quad per item, block size swept
@@ -2004,6 +2366,10 @@ def main() -> int:
             "launches_per_ring_batch": ring_batches[0]["launches"][name],
             "launches_per_replica_batch":
                 replica["batches"][0]["launches"][name],
+            "launches_per_pool_f1_run":
+                pool["F1"]["runs"][0]["launches"][name],
+            "launches_per_pool_f3_batch":
+                pool["F3"]["batches"][0]["launches"][name],
             "shape": shape,
             **sha_times})
     by_id = {k_["id"]: k_ for k_ in kernels}

@@ -140,13 +140,17 @@ class TorchTreeHasher(TreeHasher):
 def make_tree_hasher(backend: str = "cuda", min_batch: int = 1024,
                      fuse_min: Optional[int] = None) -> TreeHasher:
     """The hasher for a backend name: "cuda" (the default; raises without
-    a GPU), "torch" (plain versions on the CPU) or "cpu" (hashlib).
+    a GPU), "torch" (plain versions on the CPU) or "cpu" (hashlib). The
+    sharded verifier backends hash as their single-device ones do, as the
+    reference's "jax-sharded" hashes on its device hasher: a node on
+    "cuda-sharded" hashes on the card, on "torch-sharded" on the CPU.
     min_batch/fuse_min are TorchTreeHasher's thresholds."""
-    if backend == "cuda":
+    if backend in ("cuda", "cuda-sharded"):
         return TorchTreeHasher(min_batch, fuse_min, device="cuda")
-    if backend == "torch":
+    if backend in ("torch", "torch-sharded"):
         return TorchTreeHasher(min_batch, fuse_min, device="cpu")
     if backend == "cpu":
         return TreeHasher()
-    raise ValueError(f"unknown tree-hasher backend {backend!r} "
-                     "(want 'cuda', 'torch' or 'cpu')")
+    raise ValueError(f"unknown tree-hasher backend {backend!r} (want "
+                     "'cuda', 'cuda-sharded', 'torch', 'torch-sharded' or "
+                     "'cpu')")

@@ -15,12 +15,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every module of the port that is a copy of the reference, imports
 # rewritten and nothing else
 COPIES = [
-    "common/__init__.py", "common/message_base.py", "common/metrics.py",
-    "common/node_messages.py", "common/quorums.py", "common/tracing.py",
+    "catchup/__init__.py", "catchup/cons_proof.py", "catchup/leecher.py",
+    "catchup/rep.py", "catchup/seeder.py",
+    "client/__init__.py", "client/client.py", "client/pipelined.py",
+    "client/sim_clients.py", "client/wallet.py",
+    "common/__init__.py", "common/backoff.py", "common/event_bus.py",
+    "common/internal_messages.py", "common/message_base.py",
+    "common/metrics.py", "common/node_messages.py", "common/quorums.py",
+    "common/stashing.py", "common/suspicion_codes.py", "common/timer.py",
+    "common/tracing.py",
     "config.py",
-    "consensus/__init__.py", "consensus/batch_executor.py",
-    "consensus/batch_id.py", "consensus/bls_bft_replica.py",
-    "consensus/consensus_shared_data.py", "consensus/primary_selector.py",
+    "consensus/__init__.py", "consensus/batch_controller.py",
+    "consensus/batch_executor.py", "consensus/batch_id.py",
+    "consensus/bls_bft_replica.py", "consensus/checkpoint_service.py",
+    "consensus/consensus_shared_data.py", "consensus/ordering_service.py",
+    "consensus/primary_health_service.py", "consensus/primary_selector.py",
+    "consensus/replica.py", "consensus/view_change_service.py",
+    "consensus/view_change_trigger_service.py",
     "crypto/__init__.py", "crypto/bls.py", "crypto/bn254.py",
     "crypto/multi_signature.py",
     "execution/__init__.py", "execution/action_manager.py",
@@ -33,9 +44,18 @@ COPIES = [
     "execution/handlers/node.py", "execution/handlers/nym.py",
     "execution/handlers/taa.py",
     "ledger/__init__.py", "ledger/hash_store.py", "ledger/merkle_verifier.py",
-    "node/pool_manager.py",
-    "parallel/commit_wave.py",
+    "network/__init__.py", "network/sim_network.py", "network/sim_random.py",
+    "node/__init__.py", "node/blacklister.py", "node/inconsistency_watcher.py",
+    "node/message_req_processor.py", "node/monitor.py", "node/node.py",
+    "node/notifier.py", "node/observer.py", "node/pool_manager.py",
+    "node/propagator.py",
+    "observability/__init__.py", "observability/aggregator.py",
+    "observability/correlate.py", "observability/history.py",
+    "observability/snapshot.py",
+    "parallel/commit_wave.py", "parallel/crypto_service.py",
     "plugins.py",
+    "reads/__init__.py", "reads/client.py", "reads/edge.py",
+    "reads/plane.py", "reads/proofs.py",
     "state/__init__.py", "state/native_codec.py", "state/pruning_state.py",
     "state/rlp.py", "state/trie.py",
     "state/commitment/__init__.py", "state/commitment/base.py",
@@ -44,7 +64,7 @@ COPIES = [
     "storage/__init__.py", "storage/kv_chunked.py", "storage/kv_file.py",
     "storage/kv_memory.py", "storage/kv_native.py", "storage/kv_store.py",
     "storage/state_ts_store.py",
-    "tools/__init__.py",
+    "tools/__init__.py", "tools/proof_vectors.py", "tools/trace_report.py",
     "utils/__init__.py", "utils/base58.py",
 ]
 
@@ -67,20 +87,94 @@ def _ref_tree(rel: str) -> list[str]:
     return _tree(_source("plenum_tpu", rel))
 
 
-# deliberate differences inside a copy (ROADMAP C): the port's line, the
+def _ref_lines(rel: str, first: int, last: int) -> str:
+    """Lines first..last (1-based) of the reference's file."""
+    return "".join(_source("plenum_tpu", rel).splitlines(True)[first - 1:last])
+
+
+# deliberate differences inside a copy (ROADMAP C): the port's text, the
 # reference's, undone before the comparison
-UNDONE = {"config.py": ('crypto_backend: str = "cuda"',
-                        'crypto_backend: str = "cpu"')}
+UNDONE = {
+    "config.py": [('crypto_backend: str = "cuda"',
+                   'crypto_backend: str = "cpu"')],
+    # the service's backend names are make_verifier's, its default the
+    # card's, supervised as the reference's factory supervises a device;
+    # its default socket lies in the temporary directory, not /tmp
+    "parallel/crypto_service.py": [
+        ("(measured on the reference's TPU)", "(measured, round 4)"),
+        ("import struct\nimport tempfile\n", "import struct\n"),
+        ('os.path.join(tempfile.gettempdir(), "plenum_crypto.sock")',
+         '"/tmp/plenum_crypto.sock"'),
+        ('"--backend", default="cuda",', '"--backend", default="cpu",'),
+        ("supervised=not args.no_supervisor)",
+         "supervised=False if args.no_supervisor else None)"),
+        ("(cpu | cuda | cuda-sharded via", "(cpu | jax | jax-sharded via"),
+        ("[--backend cpu|cuda|cuda-sharded]", "[--backend cpu|jax|jax-sharded]"),
+        ('choices=["cpu", "cuda", "cuda-sharded",\n'
+         '                             "torch", "torch-sharded"])',
+         'choices=["cpu", "jax", "jax-sharded"])')],
+    # the module docstring's lines 3-5 drop the reference's change numbers
+    "reads/edge.py": [
+        ("The verified reads made one VALIDATOR's read reply trustworthy "
+         "(the\nproof is anchored to a BLS multi-signed root), and the "
+         "observer tier\n(ingress/observer_reads.py) moved serving onto "
+         "replicas outside the\n", _ref_lines("reads/edge.py", 3, 5))],
+    # the port's CryptoPipeline takes its Ed25519 inner explicitly; the
+    # reference's default inner is this CPU verifier
+    "tools/proof_vectors.py": [
+        ("    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier\n",
+         ""),
+        ("CryptoPipeline(CpuEd25519Verifier())", "CryptoPipeline()")],
+}
+
+
+def _undone(rel: str) -> str:
+    src = _source("plenum_tpu_torch", rel)
+    for port_text, ref_text in UNDONE.get(rel, ()):
+        assert src.count(port_text) == 1, port_text
+        src = src.replace(port_text, ref_text)
+    return src
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_the_reference_code(rel):
-    src = _source("plenum_tpu_torch", rel)
-    if rel in UNDONE:
-        port_line, ref_line = UNDONE[rel]
-        assert src.count(port_line) == 1
-        src = src.replace(port_line, ref_line)
-    assert _port_tree(rel, src) == _ref_tree(rel)
+    assert _port_tree(rel, _undone(rel)) == _ref_tree(rel)
+
+
+def test_crypto_service_takes_the_ports_backend_names(monkeypatch):
+    """The service's --backend choices are make_verifier's names, not the
+    reference's JAX ones; its default is the card, supervised unless
+    --no-supervisor, and its socket lies in the temporary directory;
+    test_copy_is_the_reference_code holds the rest."""
+    import tempfile
+
+    from plenum_tpu_torch.crypto import ed25519
+    from plenum_tpu_torch.parallel import crypto_service
+    with pytest.raises(SystemExit):
+        crypto_service.main(["--backend", "jax"])
+    assert crypto_service.DEFAULT_SOCKET == os.path.join(
+        tempfile.gettempdir(), "plenum_crypto.sock")
+
+    class Built(Exception):
+        pass
+
+    asked = []
+
+    def make_verifier(backend, **kw):
+        asked.append((backend, kw))
+        raise Built
+
+    monkeypatch.setattr(ed25519, "make_verifier", make_verifier)
+    for argv in ([], ["--no-supervisor"], ["--backend", "torch"]):
+        with pytest.raises(Built):
+            crypto_service.main(argv)
+    assert asked == [("cuda", {"min_batch": 128, "supervised": True}),
+                     ("cuda", {"min_batch": 128, "supervised": False}),
+                     ("torch", {"min_batch": 128, "supervised": True})]
+    from plenum_tpu_torch.crypto.bls import BlsCryptoVerifier
+    for backend in ("cpu", "cuda", "cuda-sharded", "torch", "torch-sharded"):
+        assert isinstance(crypto_service.make_bls_verifier(backend),
+                          BlsCryptoVerifier)
 
 
 def test_config_differs_only_in_its_card_default():
@@ -120,11 +214,31 @@ def test_native_loader_differs_only_in_its_cache_dir():
 
 
 def test_local_pool_holds_the_reference_genesis_builders():
-    """So far the port's tools/local_pool.py holds two of the reference's
-    functions, copied whole; its docstring says the runner is to come."""
+    """tools/local_pool.py is the reference's with the device arm ported
+    (ROADMAP C): pool_bls_keys, build_genesis and commit_stage_stats are
+    the reference's code whole; build_pool's "jax" arm is "cuda" (and
+    "torch" on the CPU) on make_crypto_pipeline's single-device ring, its
+    "jax-percall" arm "cuda-percall" with a supervised verifier per node;
+    run_load and main default to "cuda"."""
     port = ast.parse(_source("plenum_tpu_torch", "tools/local_pool.py")
                      .replace("plenum_tpu_torch", "plenum_tpu")).body
-    ref = _ref_tree("tools/local_pool.py")
-    defs = [n for n in port if isinstance(n, ast.FunctionDef)]
-    assert [d.name for d in defs] == ["pool_bls_keys", "build_genesis"]
-    assert all(ast.dump(n) in ref for n in port[1:])
+    ref = ast.parse(_source("plenum_tpu", "tools/local_pool.py")).body
+    defs = {n.name: n for n in port if isinstance(n, ast.FunctionDef)}
+    ref_defs = {n.name: n for n in ref if isinstance(n, ast.FunctionDef)}
+    assert list(defs) == list(ref_defs) == [
+        "pool_bls_keys", "build_genesis", "build_pool", "commit_stage_stats",
+        "run_load", "main"]
+    for name in ("pool_bls_keys", "build_genesis", "commit_stage_stats"):
+        assert ast.dump(defs[name]) == ast.dump(ref_defs[name]), name
+    # run_load: the default backend and the percall arm's name
+    src = ast.unparse(defs["run_load"]).replace(
+        "backend: str='cuda'", "backend: str='cpu'").replace(
+        "'cuda-percall'", "'jax-percall'")
+    assert src == ast.unparse(ref_defs["run_load"])
+    main_src = ast.unparse(defs["main"]).replace(
+        "default='cuda', choices=['cpu', 'cuda', 'cuda-percall', 'torch']",
+        "default='cpu', choices=['cpu', 'jax', 'jax-percall']")
+    assert main_src == ast.unparse(ref_defs["main"])
+    assert [ast.dump(n) for n in port[1:]
+            if not isinstance(n, ast.FunctionDef)] == \
+        [ast.dump(n) for n in ref[1:] if not isinstance(n, ast.FunctionDef)]

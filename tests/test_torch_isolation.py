@@ -55,7 +55,14 @@ def test_every_module_imports_with_jax_and_reference_blocked():
             "plenum_tpu_torch.native", "plenum_tpu_torch.crypto.bls",
             "plenum_tpu_torch.consensus.bls_bft_replica",
             "plenum_tpu_torch.node.bootstrap",
-            "plenum_tpu_torch.tools.local_pool"} <= set(mods)
+            "plenum_tpu_torch.tools.local_pool",
+            "plenum_tpu_torch.node.node", "plenum_tpu_torch.network.sim_network",
+            "plenum_tpu_torch.consensus.ordering_service",
+            "plenum_tpu_torch.catchup.leecher", "plenum_tpu_torch.reads.plane",
+            "plenum_tpu_torch.client.client",
+            "plenum_tpu_torch.observability.aggregator",
+            "plenum_tpu_torch.parallel.crypto_service",
+            "plenum_tpu_torch.tools.trace_report"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _BLOCKER, *mods], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)

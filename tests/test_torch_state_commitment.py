@@ -1,10 +1,11 @@
 """The port's StateCommitment subsystem, held to the reference's cases
 (tests/test_state_commitment.py): KZG engine, Verkle backend, interface
 conformance across backends and the pipeline commitment wave kind, on
-the ring's default host KZG engine. The ring takes no default Ed25519
-inner in the port, so these rings get the CPU verifier. The read
-plane's cases (verkle envelopes, the multi-key page, the cross-shard
-read) need the pool, `reads/` and `shards/`, which are not ported yet.
+the ring's default host KZG engine, and the read plane's verkle
+envelopes and multi-key pages on the port's pool. The ring takes no
+default Ed25519 inner in the port, so these rings get the CPU verifier.
+The cross-shard read needs `shards/`, which is not ported yet (ROADMAP
+A8).
 """
 from __future__ import annotations
 
@@ -320,3 +321,138 @@ def test_cohosted_states_dedup_recommits_through_ring():
     assert len(roots) == 1
     # replicas 2 and 3 rode the cache: unique jobs ~ one replica's share
     assert pipe.stats["cmt_unique"] * 2 <= pipe.stats["cmt_items"]
+
+
+# --- read plane: verkle envelopes + the multi-key page -----------------------
+
+@pytest.fixture(scope="module")
+def vpool():
+    from test_torch_pool import Pool, signed_nym
+    from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
+    pool = Pool(seed=11, config=Config(Max3PCBatchWait=0.05,
+                                       crypto_backend="cpu",
+                                       STATE_COMMITMENT="verkle"))
+    users = [Ed25519Signer(seed=(b"vp%03d" % i).ljust(32, b"\0")[:32])
+             for i in range(6)]
+    for i, u in enumerate(users):
+        pool.submit(signed_nym(pool.trustee, u, i + 1))
+    pool.run(10.0)
+    return pool, users
+
+
+def test_verkle_pool_serves_verified_reads(vpool):
+    from plenum_tpu_torch.common.node_messages import DOMAIN_LEDGER_ID
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.execution.txn import GET_NYM
+    from plenum_tpu_torch.reads import READ_PROOF, verify_read_proof
+    from plenum_tpu_torch.tools.local_pool import pool_bls_keys
+    pool, users = vpool
+    sizes = {pool.nodes[n].c.db.get_ledger(DOMAIN_LEDGER_ID).size
+             for n in pool.names}
+    assert sizes == {7}, sizes
+    keys = pool_bls_keys(pool.names)
+    q = Request("t", 1, {"type": GET_NYM, "dest": users[0].identifier})
+    result = pool.nodes["Alpha"].read_plane.answer(q)
+    env = result[READ_PROOF]
+    assert env["kind"] == "verkle"
+    assert "proof" not in env["entries"][0]      # no per-entry chains
+    ok, reason = verify_read_proof(GET_NYM, q.operation, result, keys,
+                                   freshness_s=1e12,
+                                   now=pool.timer.get_current_time)
+    assert ok, reason
+    # tamper the value: fail closed through the ordinary client core
+    import copy
+    bad = copy.deepcopy(result)
+    bad[READ_PROOF]["entries"][0]["value"] = "ab" * 40
+    ok, reason = verify_read_proof(GET_NYM, q.operation, bad, keys,
+                                   freshness_s=1e12,
+                                   now=pool.timer.get_current_time)
+    assert not ok
+
+
+@pytest.mark.parametrize("backend", ["mpt", "verkle"])
+def test_page_envelope_roundtrip_and_splice(backend, vpool):
+    """ReadPlane.page_envelope: one envelope answers a 4-key page on
+    BOTH backends; a spliced page (values swapped between keys) fails
+    the client-side page verification on both."""
+    from plenum_tpu_torch.common.node_messages import DOMAIN_LEDGER_ID
+    from plenum_tpu_torch.reads.proofs import verify_page_envelope
+    from plenum_tpu_torch.tools.local_pool import pool_bls_keys
+    if backend == "verkle":
+        pool, users = vpool
+    else:
+        from test_torch_pool import Pool, signed_nym
+        from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
+        pool = Pool(seed=12, config=Config(Max3PCBatchWait=0.05,
+                                           crypto_backend="cpu"))
+        users = [Ed25519Signer(seed=(b"mp%03d" % i).ljust(32, b"\0")[:32])
+                 for i in range(6)]
+        for i, u in enumerate(users):
+            pool.submit(signed_nym(pool.trustee, u, i + 1))
+        pool.run(10.0)
+    keys = pool_bls_keys(pool.names)
+    page = [u.identifier.encode() for u in users[:4]] + [b"absent-did"]
+    env = pool.nodes["Alpha"].read_plane.page_envelope(
+        DOMAIN_LEDGER_ID, page)
+    assert env is not None and env["kind"] == \
+        ("verkle" if backend == "verkle" else "state")
+    ok, values, reason = verify_page_envelope(
+        env, page, keys, DOMAIN_LEDGER_ID, freshness_s=1e12,
+        now=pool.timer.get_current_time)
+    assert ok, reason
+    assert values[-1] is None and all(v is not None for v in values[:4])
+    # a page with the client's keys in a different order must fail
+    ok, _, reason = verify_page_envelope(
+        env, list(reversed(page)), keys, DOMAIN_LEDGER_ID,
+        freshness_s=1e12, now=pool.timer.get_current_time)
+    assert not ok
+    # a signed envelope from a DIFFERENT ledger than the client asked
+    # for must fail even though every internal binding is honest
+    from plenum_tpu_torch.common.node_messages import CONFIG_LEDGER_ID
+    ok, _, reason = verify_page_envelope(
+        env, page, keys, CONFIG_LEDGER_ID, freshness_s=1e12,
+        now=pool.timer.get_current_time)
+    assert not ok and reason == "unsigned_root"
+    # splice two values inside the envelope: fail closed on both kinds
+    bad = unpack(pack(env))
+    e0, e1 = bad["entries"][0], bad["entries"][1]
+    e0["value"], e1["value"] = e1["value"], e0["value"]
+    ok, _, reason = verify_page_envelope(
+        bad, page, keys, DOMAIN_LEDGER_ID, freshness_s=1e12,
+        now=pool.timer.get_current_time)
+    assert not ok
+    # proof-byte production counters sampled the build (multi-key pages
+    # ride their own names — never the single-read distributions)
+    from plenum_tpu_torch.common.metrics import MetricsName
+    name = (MetricsName.READ_PROOF_BYTES_VERKLE_MULTI
+            if backend == "verkle"
+            else MetricsName.READ_PROOF_BYTES_STATE_MULTI)
+    acc = pool.nodes["Alpha"].metrics.accumulators.get(name)
+    assert acc is not None and acc.count >= 1
+
+
+def test_verkle_multikey_deref_chain_aggregates(vpool):
+    """The TAA deref chain (2 keys) rides ONE aggregated opening —
+    the per-request path exercising the multi-key machinery."""
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.execution.txn import (GET_TXN_AUTHOR_AGREEMENT,
+                                          TXN_AUTHOR_AGREEMENT)
+    from plenum_tpu_torch.reads import READ_PROOF, verify_read_proof
+    from plenum_tpu_torch.tools.local_pool import pool_bls_keys
+    pool, _ = vpool
+    taa = Request(pool.trustee.identifier, 99,
+                  {"type": TXN_AUTHOR_AGREEMENT, "version": "9",
+                   "text": "vkterms"})
+    taa.signature = pool.trustee.sign_b58(taa.signing_bytes())
+    pool.submit(taa)
+    pool.run(6.0)
+    q = Request("t", 2, {"type": GET_TXN_AUTHOR_AGREEMENT})
+    result = pool.nodes["Beta"].read_plane.answer(q)
+    env = result.get(READ_PROOF)
+    assert env is not None and env["kind"] == "verkle", result
+    assert len(env["entries"]) == 2              # latest -> digest record
+    ok, reason = verify_read_proof(
+        GET_TXN_AUTHOR_AGREEMENT, q.operation, result,
+        pool_bls_keys(pool.names), freshness_s=1e12,
+        now=pool.timer.get_current_time)
+    assert ok, reason

@@ -1,7 +1,9 @@
-"""The port's tracing plane (plenum_tpu_torch/common/tracing.py), held to
-the cases of the reference's tests/test_tracing.py that touch no module
-the port lacks (the sim-pool waterfalls wait for the pool, ROADMAP A5),
-and to the reference's tracer itself on the same seeded event stream."""
+"""The port's tracing plane (plenum_tpu_torch/common/tracing.py) and its
+waterfall assembly (tools/trace_report.py), held to the cases of the
+reference's tests/test_tracing.py that touch no module the port lacks
+(the log analyzer's waits for tools/, ROADMAP A8), the sim-pool
+waterfalls on the port's pool included, and to the reference's tracer
+itself on the same seeded event stream."""
 from __future__ import annotations
 
 import json
@@ -14,7 +16,14 @@ from plenum_tpu.common import tracing as ref_tracing
 from plenum_tpu_torch.common import tracing
 from plenum_tpu_torch.common.metrics import (SAMPLE_CAP, Accumulator,
                                              percentile)
+from plenum_tpu_torch.common.node_messages import Reply
 from plenum_tpu_torch.common.tracing import NULL_TRACER, Tracer, span_sequence
+from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
+from plenum_tpu_torch.tools.trace_report import (assemble,
+                                                 attribution_summary,
+                                                 summarize)
+
+from test_torch_pool import Pool, signed_nym
 
 
 def test_percentile_nearest_rank_pins():
@@ -102,6 +111,136 @@ def test_breaker_transitions_reach_flight_recorder():
             if e[1] == "anomaly.breaker"]
     assert hops == [("closed", "open"), ("open", "half_open"),
                     ("half_open", "closed")]
+
+
+def _order_one_traced(pool, req):
+    """Submit and run until a Reply lands; -> (t_submit, t_reply) sim
+    times measured the way a client would."""
+    t0 = pool.timer.get_current_time()
+    pool.submit(req)
+    for _ in range(1000):
+        for node in pool.nodes.values():
+            node.prod()
+        if any(isinstance(m, Reply)
+               for m, _ in pool.client_msgs[pool.names[0]]):
+            return t0, pool.timer.get_current_time()
+        pool.timer.advance(0.01)
+    raise AssertionError("request never ordered")
+
+
+def test_sim_waterfall_stage_sum_matches_e2e():
+    """The tentpole acceptance shape on the deterministic sim: every node
+    produces a full per-request waterfall, stage sums telescope to within
+    10% of the measured end-to-end latency, and pool-level attribution
+    reports p50/p95 for each stage including cross-node network time."""
+    pool = Pool()
+    user = Ed25519Signer(seed=b"waterfall-user".ljust(32, b"\0"))
+    req = signed_nym(pool.trustee, user, 1)
+    t_submit, t_reply = _order_one_traced(pool, req)
+    e2e = t_reply - t_submit
+    assert e2e > 0
+    pool.run(3.0)       # let the slower replicas finish their own commits
+
+    report = assemble([pool.nodes[n].tracer.snapshot()
+                       for n in pool.names])
+    assert req.digest in report["requests"]
+    per_node = report["requests"][req.digest]
+    assert set(per_node) == set(pool.names)         # every node's view
+    for node_name, wf in per_node.items():
+        for stage in ("crypto", "propagate", "queue", "ordering",
+                      "durable", "reply"):
+            assert stage in wf["stages"], (node_name, wf["stages"])
+        # stages telescope: their sum IS the node's ingress->reply span
+        assert wf["total"] == pytest.approx(wf["end"] - wf["start"],
+                                            abs=1e-9), node_name
+    # the node whose client reply defined the measured e2e: stage sum
+    # within 10% (+1 prod step of measurement granularity)
+    wf = per_node[pool.names[0]]
+    assert abs(wf["total"] - e2e) <= 0.1 * e2e + 0.011, (wf["total"], e2e)
+    att = attribution_summary(report)
+    for stage in ("network", "crypto", "propagate", "queue", "ordering",
+                  "durable", "reply", "apply_wall", "durable_wall"):
+        assert stage in att, sorted(att)
+        assert att[stage]["p50_ms"] >= 0
+        assert att[stage]["p95_ms"] >= att[stage]["p50_ms"]
+    # the compact bench-line summary rides the same report
+    summary = summarize(report)
+    assert summary["requests_traced"] == 1
+    # a clamped out-of-order stage (a replica can admit the pre-prepare
+    # before its own propagate quorum) may shave the ratio slightly
+    assert summary["stage_sum_ratio_p50"] == pytest.approx(1.0, abs=0.02)
+
+
+def test_anomalies_recorded_across_view_change():
+    """A primary blackout's story lands in the flight recorder: VC start
+    + completion anomalies on the survivors, and the assembled report's
+    anomaly timeline carries them in order."""
+    from plenum_tpu_torch.config import Config
+    pool = Pool(config=Config(Max3PCBatchWait=0.05, crypto_backend="cpu",
+                              PRIMARY_HEALTH_CHECK_FREQ=0.5,
+                              ORDERING_PROGRESS_TIMEOUT=2.0,
+                              STATE_FRESHNESS_UPDATE_INTERVAL=3.0,
+                              VIEW_CHANGE_TIMEOUT=8.0,
+                              NEW_VIEW_TIMEOUT=4.0))
+    from plenum_tpu_torch.network import Discard, match_dst, match_frm
+    primary = pool.nodes["Alpha"].master_replica.data.primary_name
+    pool.net.add_rule(Discard(), match_dst(primary))
+    pool.net.add_rule(Discard(), match_frm(primary))
+    user = Ed25519Signer(seed=b"vc-anomaly-user".ljust(32, b"\0"))
+    pool.submit(signed_nym(pool.trustee, user, 1),
+                to=[n for n in pool.names if n != primary])
+    pool.run(25.0)
+    survivors = [n for n in pool.names if n != primary]
+    assert all(pool.nodes[n].master_replica.view_no >= 1
+               for n in survivors)
+    report = assemble([pool.nodes[n].tracer.snapshot()
+                       for n in survivors])
+    kinds = [k for (_t, _n, k, _d) in report["anomalies"]]
+    assert "view_change_start" in kinds
+    assert "view_change_complete" in kinds
+    # completion never precedes the first start in the aligned timeline
+    assert kinds.index("view_change_start") \
+        < kinds.index("view_change_complete")
+
+
+# --- tooling smoke (the tier-1 CI satellite) --------------------------------
+
+def test_trace_report_check_smoke(capsys):
+    """`trace_report --check` assembles a synthetic two-node fixture with
+    skewed wall anchors and asserts alignment + waterfall invariants —
+    the tier-1 smoke for the assembly path."""
+    from plenum_tpu_torch.tools.trace_report import main
+    assert main(["--check"]) == 0
+    out = json.loads(capsys.readouterr().out.strip())
+    assert out["check"] == "ok"
+    assert not out["problems"]
+
+
+def test_waterfall_out_of_order_points_stay_disjoint():
+    """A replica can admit the PRE-PREPARE before its OWN propagate
+    quorum completes; the waterfall must not re-count the overlap into
+    the ordering stage — stage sums always telescope to the observed
+    first->last span (regression: overlapping stages inflated totals
+    past end-start and poisoned the 10% acceptance ratio)."""
+    req, batch = "r" * 8, "b" * 8
+    dump = {"node": "N", "clock_domain": "shared", "mono_anchor": 0.0,
+            "wall_anchor": None, "dumped_at": 20.0, "anomalies": 0,
+            "events": [
+                [1.0, "ingress", req, None],
+                [2.0, "auth", req, {"ok": True}],
+                # pp arrives at t=3, BEFORE the local quorum at t=5
+                [3.0, "pp_recv", batch, {"seq": 1, "reqs": [req]}],
+                [5.0, "propagate_quorum", req, {"votes": 2}],
+                [10.0, "ordered", batch, {"seq": 1}],
+                [11.0, "durable", "", {"seqs": [1]}],
+                [13.0, "reply", req, {"seq": 1}]]}
+    report = assemble([dump])
+    wf = report["requests"][req]["N"]
+    assert wf["total"] == pytest.approx(wf["end"] - wf["start"], abs=1e-9)
+    assert wf["total"] == pytest.approx(12.0, abs=1e-9)   # 13 - 1
+    assert wf["stages"]["queue"] == 0.0                   # clamped
+    # ordering starts where the covered prefix ends (t=5), not at pp t=3
+    assert wf["stages"]["ordering"] == pytest.approx(5.0, abs=1e-9)
 
 
 def test_span_sequence_canonical():
