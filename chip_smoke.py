@@ -95,7 +95,7 @@ drives the port's paths on the card:
      PRE-PREPARE/PREPARE/COMMIT, checkpoints and BLS multi-signatures,
      every client signature authenticated by K3 + K4 on the ring.
      F1: tools/local_pool.run_load(n_nodes=4, n_txns=300,
-     backend="cuda"), the reference bench's own call, three times; F2:
+     backend="cuda"), the reference bench's own call, twice; F2:
      run_load(4, 4000, "cuda", window=1000), a full Max3PCBatchSize
      flood, twice; each run in turns with its "cpu" twin (the host
      crypto baseline) on the same host, the ratio of the median TPS
@@ -119,7 +119,37 @@ drives the port's paths on the card:
      stages, the controller's trajectory, the ring's summary, launches
      per run, the profiled runs' device busy, and per F3 batch the time
      from submit to the last node's reply beside path E's batches;
-  8. times: per kernel, the median of CUDA-event-timed launches after
+  8. path G, the TCP pool (slice 10): tools/tcp_pool's four start_node
+     OS processes over the authenticated TCP stack (X25519 + Ed25519
+     handshake, ChaCha20-Poly1305 frames), driven by its pipelined
+     client. G1, the tcpsvc topology: a CryptoPlaneServer in this
+     process on make_verifier("cuda", supervised=True), the nodes on
+     backend "service" through PLENUM_CRYPTO_SOCKET (none of them sees
+     the card), run_tcp_pool(4, 600, "service", window=300) three times
+     in turns with its twin run_tcp_pool(4, 600, "service:cpu",
+     window=300) (a service process on the host verifier), then once
+     more under torch.profiler (the device busy time); each call in one
+     spawned process, so its client shares no interpreter lock with the
+     service's threads, as in the tcpsvc topology. Each G1 run fails
+     unless every txn was ordered and every node's flushed metrics show
+     it ordered with its supervisor's breaker closed and nothing routed
+     to its fallback, K3 = K4 >= 1 launched in the run, the
+     server dispatched with no worker-loop error, and the service's
+     supervisor shows no fallback, hedge won by the CPU or device error;
+     a twin run fails if it launched any kernel here. G2, the
+     operator's entry point: run_tcp_pool(4, 600, "service:cuda",
+     window=300), which spawns python -m
+     plenum_tpu_torch.parallel.crypto_service --backend cuda; fails
+     unless every txn was ordered, the service's stats show dispatches,
+     no error and nothing off the card, and the backend state is "ok".
+     G3: run_tcp_pool(4, 200, "cuda"), four CUDA contexts on the card,
+     each node's verifier supervised; the same per-node checks. G4: an
+     ObserverNode(crypto_backend="cuda") following four "cpu"
+     start_node processes through 200 NYMs; fails unless its domain
+     ledger and state equal every validator's (rebuilt from its stores
+     after the run) and a GET_NYM read_proof from its client port
+     verifies under the pool's BLS keys;
+  9. times: per kernel, the median of CUDA-event-timed launches after
      warm-up, its plain version's time, and its bound on this card (K3-K6,
      one quad of four threads per item, at 32, 64 and 128 threads per
      block; the interior hash at 32, 64 and 128 threads a block with
@@ -139,9 +169,9 @@ drives the port's paths on the card:
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails if a kernel of that path was never launched.
 The card's verifiers are bare (a fault raises), but for the rings of
-paths D, E and F, which are supervised as the reference pool wires them:
-those paths fail if the supervisor fell back to the CPU, hedged, or saw
-a device error.
+paths D, E and F and path G's service and card nodes, which are
+supervised as the reference pool wires them: those paths fail if the
+supervisor fell back to the CPU, hedged, or saw a device error.
 Prints JSON lines (kernels, paths, device) and, last, one JSON object
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Imports nothing of JAX.
@@ -407,13 +437,16 @@ def host_profile(prof: cProfile.Profile) -> dict:
                                             key=lambda kv: -kv[1][2])[:20]]}
 
 
-# the sizes of paths E and F (module docstring); a rehearsal on the CPU
-# patches them smaller and F_BACKEND to "torch"
+# the sizes of paths E, F and G (module docstring); a rehearsal on the
+# CPU patches them smaller and F_BACKEND and G_BACKEND to "torch"
 PREFILL = 100_000
 F_BACKEND = "cuda"
-F1_TXNS, F1_RUNS = 300, 3
+F1_TXNS, F1_RUNS = 300, 2
 F2_TXNS, F2_WINDOW, F2_RUNS = 4000, 1000, 2
 F3_BATCHES, F3_REQUESTS = 5, 1000
+G_BACKEND = "cuda"
+G1_TXNS, G1_WINDOW, G1_RUNS = 600, 300, 3
+G3_TXNS, G4_NYMS = 200, 200
 
 
 def replica_state(names, n_prefill: int, rng) -> dict:
@@ -975,6 +1008,352 @@ def pool_runs(off_card_check, device_window) -> dict:
     out["F2"]["host_profile_one_run"] = {"tps_under_cprofile": r["tps"],
                                          **host_profile(prof)}
     return out
+
+
+def _node_summaries(base: str, names) -> dict:
+    """Each node's flushed metrics history (tools/metrics_report), as
+    tcp_pool reads the first node's."""
+    from plenum_tpu_torch.tools.metrics_report import (derive_summary,
+                                                       fold_rows, read_store)
+    return {n: derive_summary(fold_rows(read_store(
+        os.path.join(base, n, "metrics"))), 0.0) for n in names}
+
+
+def _require_nodes_on_plane(what: str, summaries: dict,
+                            supervised: bool) -> dict:
+    """Every node ordered (tcp_pool stops the nodes once f + 1 replied to
+    the last request, so a node may stop a batch short); where its
+    verifier is supervised (service nodes, card nodes), every node's
+    flushed supervisor gauges show the breaker closed and nothing routed
+    to its CPU fallback. -> txns ordered by node."""
+    for name, s_ in summaries.items():
+        if not s_.get("txns_ordered"):
+            raise AssertionError(f"{what}: {name} ordered nothing")
+        if not supervised:
+            continue
+        if s_.get("crypto_breaker_state") != "closed" or any(
+                s_.get(k_) for k_ in ("crypto_fallback_batches",
+                                      "crypto_hedge_wins",
+                                      "crypto_deadline_misses",
+                                      "crypto_breaker_opens")):
+            raise AssertionError(f"{what}: {name}'s supervisor: " + str(
+                {k_: v for k_, v in s_.items() if k_.startswith("crypto_")}))
+    return {name: s_["txns_ordered"] for name, s_ in summaries.items()}
+
+
+def _require_service_clean(what: str, stats: dict) -> None:
+    """The crypto service's own counters: it dispatched, no worker-loop
+    error (each is fed to the inner's breaker and could otherwise turn
+    card faults into CPU verdicts unseen), and its supervisor routed
+    nothing off the card."""
+    plane = stats.get("plane") or {}
+    hidden = {k_: plane.get(k_) for k_ in (
+        "fallback_batches", "hedge_wins", "open_circuit_fallbacks",
+        "backpressure_fallbacks", "device_errors", "deadline_misses",
+        "verdict_forks") if plane.get(k_)}
+    if stats.get("dispatches", 0) < 1 or stats.get("errors", 0) or hidden \
+            or plane.get("breaker_state") != "closed":
+        raise AssertionError(f"{what}: service {stats}")
+
+
+def tcp_pool_path(off_card_check, device_window) -> dict:
+    """Path G (module docstring): tools/tcp_pool's four start_node
+    processes over the authenticated TCP stack, their client signatures
+    verified on the card. G1: a CryptoPlaneServer in this process on a
+    supervised G_BACKEND verifier, the nodes on "service"; G2: the
+    service as its own process (service:G_BACKEND); G3: every node on
+    its own card verifier; G4: an ObserverNode following a pool."""
+    import asyncio
+    import itertools
+    import multiprocessing
+    import tempfile
+    import threading
+
+    from plenum_tpu_torch import ops
+    from plenum_tpu_torch.crypto.ed25519 import make_verifier, warm_up
+    from plenum_tpu_torch.parallel.crypto_service import CryptoPlaneServer
+    from plenum_tpu_torch.parallel.supervisor import find_supervisor
+    from plenum_tpu_torch.tools.tcp_pool import run_tcp_pool
+
+    names = [f"Node{i + 1}" for i in range(4)]
+    # short paths: a run's service socket lies in its directory, and a
+    # unix socket's path holds at most 107 bytes
+    work = tempfile.mkdtemp(prefix="g_")
+    run_dirs = itertools.count()
+    out: dict = {"backend": G_BACKEND}
+
+    def brief(r: dict) -> dict:
+        return {k_: r.get(k_) for k_ in (
+            "txns_ordered", "txns_requested", "seconds", "tps",
+            "p50_latency_ms", "p99_latency_ms", "backend_state",
+            "crypto_plane", "crypto_service", "commit_stage",
+            "ordered_by_node")}
+
+    def pool_run(what: str, n_txns: int, backend: str, supervised: bool,
+                 **kw) -> dict:
+        """run_tcp_pool in `loader`, a spawned process, so that its
+        client's pure-Python packing does not share this process's
+        interpreter lock with G1's service threads."""
+        base = os.path.join(work, str(next(run_dirs)))
+        r = loader.apply_async(run_tcp_pool, (4, n_txns, backend),
+                               dict(base_dir=base, **kw)).get(600.0)
+        if r["txns_ordered"] != r["txns_requested"] or \
+                r["txns_requested"] != n_txns:
+            raise AssertionError(f"{what}: {r['txns_ordered']} of "
+                                 f"{r['txns_requested']} ordered")
+        if supervised and r.get("backend_state") != "ok":
+            raise AssertionError(f"{what}: backend {r.get('backend_state')}"
+                                 f", {r.get('crypto_plane')}")
+        r["ordered_by_node"] = _require_nodes_on_plane(
+            what, _node_summaries(base, names), supervised)
+        shutil.rmtree(base, ignore_errors=True)
+        return r
+
+    # --- G1: the service in this process --------------------------------
+    sock = os.path.join(work, "crypto.sock")
+    # warmed before any node dials, as the service's own main warms it
+    inner = warm_up(make_verifier(G_BACKEND, supervised=True))
+    sup = find_supervisor(inner)
+    server = CryptoPlaneServer(inner, socket_path=sock)
+    started = threading.Event()
+
+    async def serve():
+        await server.start()
+        started.set()
+        while not server._stop.is_set():
+            await asyncio.sleep(0.05)
+        await server.stop()
+
+    thread = threading.Thread(
+        target=lambda: asyncio.new_event_loop().run_until_complete(serve()),
+        daemon=True)
+    thread.start()
+    if not started.wait(30.0):
+        raise AssertionError("path G1: the crypto service never started")
+    saved_socket = os.environ.get("PLENUM_CRYPTO_SOCKET")
+    os.environ["PLENUM_CRYPTO_SOCKET"] = sock
+    # the load's own process, spawned with this socket in its env
+    loader = multiprocessing.get_context("spawn").Pool(1)
+    if saved_socket is None:
+        os.environ.pop("PLENUM_CRYPTO_SOCKET")
+    else:
+        os.environ["PLENUM_CRYPTO_SOCKET"] = saved_socket
+
+    def service_run(what: str, profiled: bool = False) -> dict:
+        st0 = dict(server.stats)
+        ops.reset_counts()
+        window = device_window() if profiled else None
+        r = pool_run(what, G1_TXNS, "service", True, window=G1_WINDOW)
+        busy = window.stop() if window is not None else None
+        counts = dict(ops.LAUNCHES)
+        delta = {k_: v - st0.get(k_, 0) for k_, v in server.stats.items()
+                 if isinstance(v, int)}
+        _require_service_clean(what, {**delta,
+                                      "plane": sup.supervisor_stats(),
+                                      "errors": server.stats.get("errors",
+                                                                 0)})
+        off_card_check(what, inner)
+        _require_launched_ed(what, counts)
+        if counts["ed25519_decompress"] != counts["ed25519_verify"]:
+            raise AssertionError(f"{what}: K3 and K4 launched "
+                                 f"{counts['ed25519_decompress']} and "
+                                 f"{counts['ed25519_verify']} times")
+        run = {**brief(r), "service": delta, "launches": counts}
+        if busy is not None:
+            busy_ms, by_name = busy
+            run.update({"device_busy_ms": busy_ms,
+                        "device_ms_by_name": by_name,
+                        "device_busy_share": busy_ms / (r["seconds"] * 1e3)
+                        if isinstance(busy_ms, float) else busy_ms})
+        return run
+
+    def twin_run(what: str) -> dict:
+        ops.reset_counts()
+        r = pool_run(what, G1_TXNS, "service:cpu", True, window=G1_WINDOW)
+        if any(ops.LAUNCHES.values()):
+            raise AssertionError(f"{what}: the host twin launched "
+                                 f"{dict(ops.LAUNCHES)}")
+        return brief(r)
+
+    try:
+        try:
+            dev, cpu = [], []
+            for i in range(G1_RUNS):    # in turns: host drift hits both
+                dev.append(service_run(f"path G1 run {i}"))
+                cpu.append(twin_run(f"path G1 twin {i}"))
+            profiled = service_run("path G1 under torch.profiler",
+                                   profiled=True)
+        finally:
+            server._stop.set()
+            thread.join(timeout=10.0)
+        med = statistics.median(d_["tps"] for d_ in dev)
+        med_cpu = statistics.median(c_["tps"] for c_ in cpu)
+        out["G1"] = {"n_txns": G1_TXNS, "window": G1_WINDOW, "runs": dev,
+                     "cpu_twin": cpu, "tps_median": med,
+                     "cpu_tps_median": med_cpu,
+                     "tps_ratio_to_cpu": med / med_cpu,
+                     "under_torch_profiler": profiled,
+                     "supervisor": sup.supervisor_stats(),
+                     "server": dict(server.stats)}
+        counts = {k_: sum(r_["launches"][k_] for r_ in dev + [profiled])
+                  for k_ in ops.LAUNCHES}
+        ops.reset_counts()      # G2-G4 launch in their own processes
+
+        # --- G2: the operator's entry point, the service its own process
+        r = pool_run("path G2", G1_TXNS, f"service:{G_BACKEND}", True,
+                     window=G1_WINDOW)
+        if not r.get("crypto_service"):
+            raise AssertionError("path G2: no stats from the crypto service")
+        _require_service_clean("path G2", r["crypto_service"])
+        out["G2"] = brief(r)
+
+        # --- G3: every node on its own card verifier ----------------------
+        ops.build()         # built once here: no node process runs nvcc
+        out["G3"] = brief(pool_run("path G3", G3_TXNS, G_BACKEND, True))
+    except BaseException:
+        loader.terminate()
+        raise
+    loader.close()
+    loader.join()
+
+    # --- G4: an observer following a pool ---------------------------------
+    out["G4"] = observer_run(os.path.join(work, "o"), names)
+    shutil.rmtree(work, ignore_errors=True)
+    out["launches_g2_to_g4_this_process"] = dict(ops.LAUNCHES)
+    out["launches"] = {k_: v + ops.LAUNCHES[k_] for k_, v in counts.items()}
+    return out
+
+
+def observer_run(base: str, names) -> dict:
+    """Path G4: four `cpu` start_node processes (durable stores) and an
+    ObserverNode on G_BACKEND following them through G4_NYMS NYMs. Fails
+    unless the observer's domain ledger and state equal every
+    validator's (rebuilt from its stores after the run) and a GET_NYM
+    read_proof envelope from the observer's client port verifies under
+    the pool's BLS keys."""
+    import asyncio
+    import signal
+    import socket
+    import subprocess
+
+    from plenum_tpu_torch.client.wallet import Wallet
+    from plenum_tpu_torch.common.node_messages import DOMAIN_LEDGER_ID
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.common.serialization import pack, unpack
+    from plenum_tpu_torch.execution.txn import GET_NYM, NYM
+    from plenum_tpu_torch.node.bootstrap import NodeBootstrap
+    from plenum_tpu_torch.node.observer_node import ObserverNode
+    from plenum_tpu_torch.reads import READ_PROOF, verify_read_proof
+    from plenum_tpu_torch.tools.genesis import load_genesis_files
+    from plenum_tpu_torch.tools.tcp_pool import (REPO, _wait_all_started,
+                                                 drive_load, setup_pool_dir)
+
+    trustee_seed = b"chip-smoke-observer".ljust(32, b"\0")
+    specs = setup_pool_dir(base, names, trustee_seed)
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    env.pop("PLENUM_CONFIG_JSON", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "plenum_tpu_torch.tools.start_node",
+         "--name", n_, "--base-dir", base, "--kv", "file",
+         "--backend", "cpu"],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for n_ in names]
+    try:
+        _wait_all_started(procs, deadline_s=60.0)
+        genesis = load_genesis_files(base)
+        addrs = {n_: ("127.0.0.1", spec[3]) for n_, spec in zip(names, specs)}
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            obs_port = s_.getsockname()[1]
+        t0 = time.perf_counter()
+        # anchor_lag_max=None: the anchors' timestamps are the primary's
+        # pp_time, which start_node takes from time.perf_counter, and the
+        # lag bound compares them with the observer's time.time, so a
+        # bound strips every envelope of an OS-process pool
+        obs = ObserverNode("observer1", genesis, addrs, f=1,
+                           client_port=obs_port, client_host="127.0.0.1",
+                           anchor_lag_max=None, crypto_backend=G_BACKEND)
+        wallet = Wallet("chip-smoke-observer")
+        trustee = wallet.add_identifier(seed=trustee_seed)
+        users, reqs = [], []
+        for i in range(G4_NYMS):
+            user = wallet.add_identifier(seed=hashlib.sha256(
+                b"chip-smoke-obs-%d" % i).digest())
+            users.append(user)
+            reqs.append(wallet.sign_request(
+                {"type": NYM, "dest": user, "verkey": wallet.verkey_of(user)},
+                identifier=trustee))
+        ledger = obs.observer.c.db.get_ledger(DOMAIN_LEDGER_ID)
+        query = Request("chip-smoke-reader", 1,
+                        {"type": GET_NYM, "dest": users[-1]})
+
+        async def scenario():
+            stop = asyncio.Event()
+            task = asyncio.create_task(obs.run(stop))
+            try:
+                await asyncio.sleep(1.0)         # registrations land
+                done, _ = await drive_load(addrs, 1, reqs, window=100,
+                                           timeout=120.0)
+                if len(done) != G4_NYMS:
+                    raise AssertionError(f"path G4: {len(done)} of "
+                                         f"{G4_NYMS} NYMs ordered")
+                deadline = time.monotonic() + 30.0
+                while ledger.size < 1 + G4_NYMS and \
+                        time.monotonic() < deadline:
+                    await asyncio.sleep(0.1)
+                if ledger.size != 1 + G4_NYMS:
+                    raise AssertionError(f"path G4: the observer holds "
+                                         f"{ledger.size} txns")
+                # one verified read from the observer's client port
+                reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                               obs_port)
+                data = pack(query.to_dict())
+                writer.write(len(data).to_bytes(4, "big") + data)
+                await writer.drain()
+                hdr = await asyncio.wait_for(reader.readexactly(4), 30.0)
+                reply = unpack(await reader.readexactly(
+                    int.from_bytes(hdr, "big")))
+                writer.close()
+                return reply
+            finally:
+                stop.set()
+                await task
+
+        reply = asyncio.run(scenario())
+        wall_s = time.perf_counter() - t0
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.send_signal(signal.SIGTERM)
+        for p_ in procs:
+            try:
+                p_.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p_.kill()
+    result = reply.get("result") or {}
+    bls_keys = ObserverNode._genesis_bls_keys(genesis)
+    ok, why = verify_read_proof(GET_NYM, query.operation, result, bls_keys,
+                                freshness_s=1e12, n_nodes=len(names))
+    if reply.get("op") != "REPLY" or READ_PROOF not in result or not ok:
+        raise AssertionError(f"path G4: the observer's read_proof does not "
+                             f"verify ({why}): {reply}")
+    mine = (ledger.size, ledger.root_hash, obs.observer.c.db.get_state(
+        DOMAIN_LEDGER_ID).committed_head_hash)
+    for n_ in names:
+        c_ = NodeBootstrap(n_, genesis_txns=genesis, crypto_backend="cpu",
+                           data_dir=os.path.join(base, n_, "data")).build()
+        theirs = (c_.db.get_ledger(DOMAIN_LEDGER_ID).size,
+                  c_.db.get_ledger(DOMAIN_LEDGER_ID).root_hash,
+                  c_.db.get_state(DOMAIN_LEDGER_ID).committed_head_hash)
+        c_.db.close()
+        if theirs != mine:
+            raise AssertionError(f"path G4: {n_}'s domain "
+                                 f"{theirs[0]} txns differs from the "
+                                 f"observer's {mine[0]}")
+    return {"nyms": G4_NYMS, "observer_backend": G_BACKEND,
+            "domain_size": mine[0], "root": mine[1].hex(),
+            "read_proof": why or "ok", "wall_s": wall_s,
+            "gate": dict(obs.read_gate.stats)}
 
 
 def production_pool(off_card_check, batch_device, state) -> dict:
@@ -2060,6 +2439,15 @@ def main() -> int:
             b_["wall_ms_4_replicas"] for b_ in replica["batches"]]})
     print(json.dumps({"pool_path": pool}))
 
+    # --- path G: the TCP pool, K3 + K4 in one service process (slice 10)
+    t_g = time.perf_counter()
+    tcp = tcp_pool_path(require_nothing_off_card, DeviceWindow)
+    tcp_counts = tcp["launches"]
+    require_launched("tcp", tcp_counts,
+                     ("ed25519_decompress", "ed25519_verify"))
+    tcp["path_s"] = time.perf_counter() - t_g
+    print(json.dumps({"tcp_pool_path": tcp}))
+
     # --- phase 3: times at the slice's shapes ------------------------------
     # the 1,000-request batch's own inputs
     _, (s_u8, h_u8, k_u8, idx_m, r_u8) = verifier.stage_bytes(auth_items)
@@ -2236,7 +2624,8 @@ def main() -> int:
     path_counts = {"slice": main_counts, "sharded": sharded_counts,
                    "probe": probe_counts, "ring": ring_counts,
                    "ring_sharded": ring_sharded_counts,
-                   "replica": replica_counts, "pool": pool_counts}
+                   "replica": replica_counts, "pool": pool_counts,
+                   "tcp": tcp_counts}
     path_of = {"K1": "slice", "K2": "slice", "K2T": "slice", "K2L": "slice",
                "K3": "pool",
                "K4": "pool", "K5": "sharded", "K6": "sharded",
@@ -2370,6 +2759,8 @@ def main() -> int:
                 pool["F1"]["runs"][0]["launches"][name],
             "launches_per_pool_f3_batch":
                 pool["F3"]["batches"][0]["launches"][name],
+            "launches_per_tcp_g1_run":
+                tcp["G1"]["runs"][0]["launches"][name],
             "shape": shape,
             **sha_times})
     by_id = {k_["id"]: k_ for k_ in kernels}

@@ -672,6 +672,10 @@ def make_verifier(backend: str = "cuda", min_batch: int = 1,
       "cpu"           the host baseline: the C library, or the
                       pure-Python RFC 8032 verifier where `cryptography`
                       is absent
+      "service"       the cross-process crypto plane: batches go to the
+                      one process that owns the card
+                      (parallel/crypto_service.py; socket from
+                      PLENUM_CRYPTO_SOCKET), supervised by default
 
     min_batch: the sharded backends pad every batch to at least this
     power of two (and to one that tiles their mesh); the single-device
@@ -683,10 +687,13 @@ def make_verifier(backend: str = "cuda", min_batch: int = 1,
     default, wraps the CPU backends ("torch", "torch-sharded") as the
     reference wraps its device verifiers, and leaves the card's bare: a
     failed launch raises instead of turning into CPU verdicts. A caller
-    that opts in on the card must read the supervisor's counters. A cuda
-    verifier finds its device and builds its kernels here, before any
-    wrapping, so a missing card or a failed nvcc build raises from
-    make_verifier, never inside submit_batch."""
+    that opts in on the card must read the supervisor's counters.
+    "service" is wrapped too, as the reference wraps it: the card lies
+    in another process, and a node must outlive that process by
+    degrading to CPU verdicts (the service reports its own faults in its
+    stats). A cuda verifier finds its device and builds its kernels
+    here, before any wrapping, so a missing card or a failed nvcc build
+    raises from make_verifier, never inside submit_batch."""
     if backend == "cuda":
         v = TorchEd25519Verifier(device="cuda")
     elif backend == "torch":
@@ -700,9 +707,20 @@ def make_verifier(backend: str = "cuda", min_batch: int = 1,
             devices=None if backend == "cuda-sharded" else ["cpu"] * 4)
     elif backend == "cpu":
         return CpuEd25519Verifier()
+    elif backend == "service":
+        # cross-process crypto plane: the card has ONE owner process and
+        # co-hosted nodes ship batches to it
+        from plenum_tpu_torch.parallel.crypto_service import \
+            ServiceEd25519Verifier
+        v = ServiceEd25519Verifier()
+        if supervised is False:
+            return v
+        from plenum_tpu_torch.parallel.supervisor import supervise
+        return supervise(v)
     else:
         raise ValueError(f"unknown Ed25519 backend {backend!r} (want 'cuda', "
-                         "'cuda-sharded', 'torch', 'torch-sharded' or 'cpu')")
+                         "'cuda-sharded', 'torch', 'torch-sharded', 'cpu' "
+                         "or 'service')")
     on_card = v.device.type == "cuda"
     if on_card:
         # build and load now (one nvcc per source, all at once); the
@@ -714,3 +732,22 @@ def make_verifier(backend: str = "cuda", min_batch: int = 1,
         return v
     from plenum_tpu_torch.parallel.supervisor import supervise
     return supervise(v)
+
+
+def warm_up(verifier: Ed25519Verifier) -> Ed25519Verifier:
+    """-> verifier, after one verify of a signature made here on the
+    verifier beneath any plane supervisor. A verifier on the card pays
+    its CUDA context and its kernels' module load at its first dispatch
+    (seconds in a fresh process), which a supervisor's cold deadline
+    (0.5 s plus 20 ms an item) would count as a miss and hedge on the
+    CPU: a process that serves verifies warms its verifier before it
+    takes work. Raises if the signature is refused."""
+    from plenum_tpu_torch.parallel.supervisor import find_supervisor
+    sup = find_supervisor(verifier)
+    device = verifier if sup is None else sup._device
+    signer = Ed25519Signer(seed=b"warm-up".ljust(32, b"\0"))
+    item = (b"warm-up", signer.sign(b"warm-up"), signer.verkey)
+    if not device.verify_batch([item]).all():
+        raise RuntimeError("the verifier refused a valid signature at "
+                           "warm-up")
+    return verifier

@@ -144,13 +144,15 @@ def make_tree_hasher(backend: str = "cuda", min_batch: int = 1024,
     sharded verifier backends hash as their single-device ones do, as the
     reference's "jax-sharded" hashes on its device hasher: a node on
     "cuda-sharded" hashes on the card, on "torch-sharded" on the CPU.
-    min_batch/fuse_min are TorchTreeHasher's thresholds."""
+    A node whose verifier is remote ("service") hashes on hashlib, as the
+    reference's does. min_batch/fuse_min are TorchTreeHasher's
+    thresholds."""
     if backend in ("cuda", "cuda-sharded"):
         return TorchTreeHasher(min_batch, fuse_min, device="cuda")
     if backend in ("torch", "torch-sharded"):
         return TorchTreeHasher(min_batch, fuse_min, device="cpu")
-    if backend == "cpu":
+    if backend in ("cpu", "service"):
         return TreeHasher()
     raise ValueError(f"unknown tree-hasher backend {backend!r} (want "
-                     "'cuda', 'cuda-sharded', 'torch', 'torch-sharded' or "
-                     "'cpu')")
+                     "'cuda', 'cuda-sharded', 'torch', 'torch-sharded', "
+                     "'cpu' or 'service')")

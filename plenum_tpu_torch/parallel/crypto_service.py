@@ -958,7 +958,7 @@ def make_bls_verifier(backend: str):
 
 def main(argv=None):
 
-    from plenum_tpu_torch.crypto.ed25519 import make_verifier
+    from plenum_tpu_torch.crypto.ed25519 import make_verifier, warm_up
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--socket", default=DEFAULT_SOCKET)
@@ -977,6 +977,9 @@ def main(argv=None):
     # batch
     inner = make_verifier(args.backend, min_batch=args.min_batch,
                           supervised=not args.no_supervisor)
+    # the card's first dispatch before the socket exists: no client's
+    # deadline sees the context and module load
+    warm_up(inner)
     server = CryptoPlaneServer(inner, socket_path=args.socket)
 
     async def run():

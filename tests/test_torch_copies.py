@@ -38,6 +38,8 @@ COPIES = [
     "execution/database_manager.py", "execution/exceptions.py",
     "execution/executor.py", "execution/read_manager.py",
     "execution/write_manager.py",
+    "ingress/__init__.py", "ingress/controller.py", "ingress/plane.py",
+    "ingress/observer_reads.py",
     "execution/handlers/__init__.py", "execution/handlers/attrib.py",
     "execution/handlers/audit.py", "execution/handlers/base.py",
     "execution/handlers/freeze.py", "execution/handlers/get_txn.py",
@@ -45,10 +47,12 @@ COPIES = [
     "execution/handlers/taa.py",
     "ledger/__init__.py", "ledger/hash_store.py", "ledger/merkle_verifier.py",
     "network/__init__.py", "network/sim_network.py", "network/sim_random.py",
+    "network/tcp_stack.py",
     "node/__init__.py", "node/blacklister.py", "node/inconsistency_watcher.py",
-    "node/message_req_processor.py", "node/monitor.py", "node/node.py",
-    "node/notifier.py", "node/observer.py", "node/pool_manager.py",
-    "node/propagator.py",
+    "node/looper.py", "node/message_req_processor.py", "node/monitor.py",
+    "node/node.py", "node/notifier.py", "node/observer.py",
+    "node/observer_node.py", "node/pool_manager.py", "node/propagator.py",
+    "node/recorder.py",
     "observability/__init__.py", "observability/aggregator.py",
     "observability/correlate.py", "observability/history.py",
     "observability/snapshot.py",
@@ -64,7 +68,10 @@ COPIES = [
     "storage/__init__.py", "storage/kv_chunked.py", "storage/kv_file.py",
     "storage/kv_memory.py", "storage/kv_native.py", "storage/kv_store.py",
     "storage/state_ts_store.py",
-    "tools/__init__.py", "tools/proof_vectors.py", "tools/trace_report.py",
+    "tools/__init__.py", "tools/genesis.py", "tools/keygen.py",
+    "tools/log_analyzer.py", "tools/metrics_report.py",
+    "tools/proof_vectors.py", "tools/replay.py", "tools/start_node.py",
+    "tools/start_observer.py", "tools/tcp_pool.py", "tools/trace_report.py",
     "utils/__init__.py", "utils/base58.py",
 ]
 
@@ -106,6 +113,9 @@ UNDONE = {
         ('os.path.join(tempfile.gettempdir(), "plenum_crypto.sock")',
          '"/tmp/plenum_crypto.sock"'),
         ('"--backend", default="cuda",', '"--backend", default="cpu",'),
+        # the card's first dispatch before the socket exists
+        ("import make_verifier, warm_up\n", "import make_verifier\n"),
+        ("    warm_up(inner)\n", ""),
         ("supervised=not args.no_supervisor)",
          "supervised=False if args.no_supervisor else None)"),
         ("(cpu | cuda | cuda-sharded via", "(cpu | jax | jax-sharded via"),
@@ -119,6 +129,94 @@ UNDONE = {
          "(the\nproof is anchored to a BLS multi-signed root), and the "
          "observer tier\n(ingress/observer_reads.py) moved serving onto "
          "replicas outside the\n", _ref_lines("reads/edge.py", 3, 5))],
+    # the observer's components run on the card unless asked for the CPU
+    # (the reference builds them on its "cpu" default)
+    "ingress/observer_reads.py": [
+        ('    crypto_backend: the components\' backend, the card unless '
+         'asked for\n    "cpu" or "torch".\n', ""),
+        (',\n                 crypto_backend: str = "cuda"):', "):"),
+        ("genesis_txns=genesis, crypto_backend=crypto_backend,",
+         "genesis_txns=genesis,")],
+    "node/observer_node.py": [
+        ('\ncrypto_backend names the components\' hasher and verifier '
+         'backend, the\ncard ("cuda") unless asked for "cpu" or "torch".\n',
+         ""),
+        (',\n                 crypto_backend: str = "cuda"):', "):"),
+        ("storage_backend=storage_backend, crypto_backend=crypto_backend,",
+         "storage_backend=storage_backend,")],
+    "tools/replay.py": [
+        (" \\\n        [--backend cuda|cpu|torch]\n", "\n"),
+        ('base_dir: str, backend: str = "cuda") -> dict:',
+         "base_dir: str) -> dict:"),
+        ("genesis_txns=genesis, crypto_backend=backend,",
+         "genesis_txns=genesis,"),
+        ('    ap.add_argument("--backend", default="cuda",\n'
+         '                    choices=["cuda", "cpu", "torch"])\n', ""),
+        ("args.base_dir, args.backend)", "args.base_dir)")],
+    "tools/start_observer.py": [
+        (" \\\n        [--backend cuda|cpu|torch]\n", "\n"),
+        ('    ap.add_argument("--backend", default="cuda",\n'
+         '                    choices=["cuda", "cpu", "torch"],\n'
+         '                    help="the replicated ledgers\' hasher: the card, "\n'
+         '                         "hashlib or the kernels\' plain versions")\n',
+         ""),
+        (",\n                       crypto_backend=args.backend)", ")")],
+    # a node runs on the card unless asked for the CPU, its card verifier
+    # supervised as the reference's device nodes are; the backend names
+    # are make_verifier's
+    "tools/start_node.py": [
+        ("        [--backend cuda|service|cpu|torch] [--kv file|memory]\n\n"
+         "The default backend, cuda, verifies the node's client signatures "
+         "on the\ncard (supervised: a card fault turns into CPU verdicts "
+         "that the node's\nmetrics count); service ships them to the "
+         "crypto-service process "
+         "that owns the\ncard (socket from PLENUM_CRYPTO_SOCKET); cpu and "
+         "torch (the kernels'\nplain versions) stay on the host.\n",
+         "        [--backend cpu|jax] [--kv file|memory]\n"),
+        ('base_dir: str, backend: str = "cuda",',
+         'base_dir: str, backend: str = "cpu",'),
+        ("    verifier = None\n    if backend == \"cuda\":\n"
+         "        from plenum_tpu_torch.crypto.ed25519 import make_verifier, "
+         "warm_up\n"
+         "        verifier = warm_up(make_verifier(\"cuda\", "
+         "supervised=True))\n", ""),
+        ("        verifier=verifier,\n", ""),
+        ('    ap.add_argument("--backend", default="cuda",\n'
+         '                    choices=["cpu", "cuda", "service", "torch"])',
+         '    ap.add_argument("--backend", default="cpu",\n'
+         '                    choices=["cpu", "jax", "service"])')],
+    # the tcpsvc topology on the card by default; CUDA_VISIBLE_DEVICES=""
+    # hides the card from every process but its owners, as the
+    # reference's JAX_PLATFORMS=cpu; the single-device verifier does not
+    # pad, so the service's min_batch is one default
+    "tools/tcp_pool.py": [
+        ("        [--backend service:cuda|service:cuda-sharded|service:cpu|"
+         "cuda|cpu]\n\nThe default, service:cuda, is the tcpsvc topology "
+         "on the card: one\ncrypto-service process owns the GPU and "
+         "verifies every node's client\nsignatures; the node processes "
+         "see no GPU.\n", ""),
+        ('n_txns: int = 200,\n                 backend: str = "service:cuda",',
+         'n_txns: int = 200, backend: str = "cpu",'),
+        ("env = dict(os.environ, PYTHONPATH=REPO)\n",
+         'env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")\n'),
+        ('service_env = env if inner.startswith("cuda") else \\\n'
+         '                dict(env, CUDA_VISIBLE_DEVICES="")',
+         'service_env = dict(env)\n'
+         '            if inner.startswith("jax"):\n'
+         '                service_env.pop("JAX_PLATFORMS", None)'),
+        ("                                    else 128)],",
+         '                                    else (512 if inner.startswith('
+         '"jax")\n                                          else 128))],'),
+        ('        node_env = env if backend == "cuda" else \\\n'
+         '            dict(env, CUDA_VISIBLE_DEVICES="")\n', ""),
+        ("cmd, env=node_env, cwd=REPO,", "cmd, env=env, cwd=REPO,"),
+        ('    ap.add_argument("--backend", default="service:cuda",\n'
+         '                    choices=["cpu", "cuda", "torch", "service:cpu",\n'
+         '                             "service:cuda", "service:cuda-sharded",\n'
+         '                             "service:torch"])',
+         '    ap.add_argument("--backend", default="cpu",\n'
+         '                    choices=["cpu", "jax", "service:cpu", '
+         '"service:jax",\n                             "service:jax-sharded"])')],
     # the port's CryptoPipeline takes its Ed25519 inner explicitly; the
     # reference's default inner is this CPU verifier
     "tools/proof_vectors.py": [

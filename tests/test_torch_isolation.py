@@ -62,7 +62,20 @@ def test_every_module_imports_with_jax_and_reference_blocked():
             "plenum_tpu_torch.client.client",
             "plenum_tpu_torch.observability.aggregator",
             "plenum_tpu_torch.parallel.crypto_service",
-            "plenum_tpu_torch.tools.trace_report"} <= set(mods)
+            "plenum_tpu_torch.tools.trace_report",
+            "plenum_tpu_torch.network.tcp_stack",
+            "plenum_tpu_torch.node.looper", "plenum_tpu_torch.node.recorder",
+            "plenum_tpu_torch.node.observer_node", "plenum_tpu_torch.ingress",
+            "plenum_tpu_torch.ingress.controller",
+            "plenum_tpu_torch.ingress.plane",
+            "plenum_tpu_torch.ingress.observer_reads",
+            "plenum_tpu_torch.tools.start_node",
+            "plenum_tpu_torch.tools.tcp_pool",
+            "plenum_tpu_torch.tools.keygen", "plenum_tpu_torch.tools.genesis",
+            "plenum_tpu_torch.tools.metrics_report",
+            "plenum_tpu_torch.tools.log_analyzer",
+            "plenum_tpu_torch.tools.replay",
+            "plenum_tpu_torch.tools.start_observer"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _BLOCKER, *mods], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)

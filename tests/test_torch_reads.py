@@ -1,6 +1,6 @@
-"""The port's copy of tests/test_reads.py, run on
-plenum_tpu_torch. The observer-served reads wait for the port of ingress/
-and node/observer_node.py (ROADMAP A6).
+"""The port's copy of tests/test_reads.py, run on plenum_tpu_torch, the
+observer-served reads included (the in-process observer on the `cpu`
+backend, as test_torch_ingress.py attaches it).
 
 Verified read plane: single-reply state-proof reads (docs/reads.md).
 
@@ -692,3 +692,130 @@ def test_get_txn_default_ledger_gets_proof(rpool):
     assert res[READ_PROOF]["kind"] == "merkle"
     assert driver.stats.single_reply_ok == 1
     assert driver.stats.fallbacks == 0
+
+
+# --- observer-served verified reads (ingress/observer_reads.py) -----------
+
+def _observer_pool(anchor_lag_max=None):
+    """Fresh pool + registered observer + one committed NYM, with pushes
+    routed. -> (pool, observer, user)."""
+    from test_torch_ingress import attach_observer, run_routed
+    pool = Pool()
+    obs = attach_observer(pool, anchor_lag_max=anchor_lag_max)
+    user = Ed25519Signer(seed=b"obs-reads-user".ljust(32, b"\0")[:32])
+    pool.submit(signed_nym(pool.trustee, user, req_id=1))
+    run_routed(pool, [obs], 6.0)
+    assert obs.batches_applied >= 1
+    return pool, obs, user
+
+
+def make_observer_driver(pool, obs, client="odrv", freshness_s=FOREVER):
+    """Two-tier driver: the observer rung first, validators as failover."""
+    def submit(name, req):
+        if name == obs.name:
+            obs.handle_client_message(req.to_dict(), client)
+        else:
+            pool.nodes[name].handle_client_message(req.to_dict(), client)
+
+    def collect(name):
+        if name == obs.name:
+            out = [m.result for m, _ in obs.sent if isinstance(m, Reply)]
+            obs.sent.clear()
+            return out
+        msgs = pool.client_msgs[name]
+        out = [m.result for m, c in msgs
+               if isinstance(m, Reply) and c == client]
+        pool.client_msgs[name] = [
+            (m, c) for m, c in msgs
+            if not (isinstance(m, Reply) and c == client)]
+        return out
+
+    return SimReadDriver(submit, collect, pool.run, pool.names,
+                         pool_bls_keys(pool), freshness_s=freshness_s,
+                         now=pool.timer.get_current_time,
+                         observer_names=[obs.name])
+
+
+def test_observer_served_read_verifies_client_side():
+    """An observer's reply carries a real proof at a VERIFIED BLS anchor;
+    the client verifies it exactly like a validator's — consensus is
+    never touched (fanout 1 request + 1 reply, all to the observer)."""
+    pool, obs, user = _observer_pool()
+    driver = make_observer_driver(pool, obs)
+    q = Request("odrv", 10, {"type": GET_NYM, "dest": user.identifier})
+    res = driver.read(q)
+    assert res is not None
+    assert res["data"]["verkey"] == user.verkey_b58
+    assert res[READ_PROOF]["kind"] == "state"
+    s = driver.stats
+    assert s.observer_ok == 1 and s.single_reply_ok == 1
+    assert s.msgs_sent == 1 and s.replies_seen == 1
+    assert s.failovers == 0 and s.fallbacks == 0
+
+
+def test_tampered_observer_envelope_fails_over_to_validator():
+    """A lying/compromised observer forging proven values must fail
+    CLOSED at the client and fail over to a validator rung."""
+    pool, obs, user = _observer_pool()
+    obs.gate.read_plane = LyingPlane(obs.gate.read_plane, _forge_value)
+    driver = make_observer_driver(pool, obs)
+    q = Request("odrv", 11, {"type": GET_NYM, "dest": user.identifier})
+    res = driver.read(q)
+    assert res is not None
+    assert res["data"]["verkey"] == user.verkey_b58
+    s = driver.stats
+    assert s.verify_failures == 1 and s.failovers == 1
+    assert s.observer_ok == 0 and s.single_reply_ok == 1
+    assert s.fallbacks == 0
+
+
+def test_stale_observer_replay_fails_over_to_validator():
+    """An observer replaying a captured pre-rotation reply (honest sig,
+    old anchor) is rejected by the client's freshness bound and the read
+    fails over to a validator, which serves the ROTATED truth."""
+    from test_torch_ingress import run_routed
+    pool, obs, user = _observer_pool()
+    captured = obs.gate.answer_batch(
+        [Request("cap", 1, {"type": GET_NYM,
+                            "dest": user.identifier})])[0]
+    assert READ_PROOF in captured
+
+    pool.run(12.0)                      # age the captured anchor
+    rotated = Ed25519Signer(seed=b"obs-rotated".ljust(32, b"\0")[:32])
+    upd = Request(pool.trustee.identifier, 2,
+                  {"type": NYM, "dest": user.identifier,
+                   "verkey": rotated.verkey_b58})
+    upd.signature = pool.trustee.sign_b58(upd.signing_bytes())
+    pool.submit(upd)
+    run_routed(pool, [obs], 6.0)
+
+    obs.gate.read_plane = LyingPlane(
+        obs.gate.read_plane,
+        lambda result: dict(captured, identifier=result.get("identifier"),
+                            reqId=result.get("reqId")))
+    driver = make_observer_driver(pool, obs, freshness_s=8.0)
+    q = Request("odrv", 12, {"type": GET_NYM, "dest": user.identifier})
+    res = driver.read(q)
+    assert res is not None
+    assert res["data"]["verkey"] == rotated.verkey_b58
+    assert driver.stats.verify_failures >= 1
+    assert driver.stats.failovers >= 1
+    assert driver.stats.observer_ok == 0
+
+
+def test_observer_anchor_advances_with_traffic():
+    """Each committed batch's pushed multi-sig advances the observer's
+    serving anchor (verified, then adopted) — reads after a write see
+    the NEW state under the NEW anchor."""
+    from test_torch_ingress import run_routed
+    pool, obs, user = _observer_pool()
+    anchors_before = obs.gate.read_plane.stats["anchor_updates"]
+    user2 = Ed25519Signer(seed=b"obs-reads-u2".ljust(32, b"\0")[:32])
+    pool.submit(signed_nym(pool.trustee, user2, req_id=2))
+    run_routed(pool, [obs], 6.0)
+    assert obs.gate.read_plane.stats["anchor_updates"] > anchors_before
+    driver = make_observer_driver(pool, obs)
+    q = Request("odrv", 13, {"type": GET_NYM, "dest": user2.identifier})
+    res = driver.read(q)
+    assert res is not None and res["data"]["verkey"] == user2.verkey_b58
+    assert driver.stats.observer_ok == 1

@@ -1,9 +1,8 @@
 """The port's tracing plane (plenum_tpu_torch/common/tracing.py) and its
 waterfall assembly (tools/trace_report.py), held to the cases of the
-reference's tests/test_tracing.py that touch no module the port lacks
-(the log analyzer's waits for tools/, ROADMAP A8), the sim-pool
-waterfalls on the port's pool included, and to the reference's tracer
-itself on the same seeded event stream."""
+reference's tests/test_tracing.py (the log analyzer's merge of flight
+dumps and the sim-pool waterfalls on the port's pool included), and to
+the reference's tracer itself on the same seeded event stream."""
 from __future__ import annotations
 
 import json
@@ -214,6 +213,39 @@ def test_trace_report_check_smoke(capsys):
     out = json.loads(capsys.readouterr().out.strip())
     assert out["check"] == "ok"
     assert not out["problems"]
+
+
+def test_log_analyzer_ingests_flight_dumps(tmp_path):
+    """log_analyzer merges flight-recorder anomaly timelines (wall-
+    aligned, deduplicated across a dump series) into its per-view
+    report next to the spylog-sourced events."""
+    from plenum_tpu_torch.tools.log_analyzer import analyze_node
+    node_dir = tmp_path / "Node1"
+    node_dir.mkdir()
+    rows = [{"t": 100.0, "event": "suspicion", "data": [13, "Beta"]},
+            {"t": 101.0, "event": "view_change_complete", "data": 1},
+            {"t": 102.0, "event": "executed", "data": [1, 1]}]
+    (node_dir / "events.jsonl").write_text(
+        "".join(json.dumps(r) + "\n" for r in rows))
+    dump = {"node": "Node1", "clock_domain": "wall", "mono_anchor": 0.0,
+            "wall_anchor": 100.0, "dumped_at": 3.0, "anomalies": 2,
+            "events": [
+                [0.2, "pp_sent", "b" * 8, {"seq": 1, "reqs": []}],
+                [0.5, "anomaly.breaker", "",
+                 {"from": "closed", "to": "open"}],
+                [2.5, "anomaly.catchup", "", None]]}
+    (node_dir / "Node1-flight-0.json").write_text(json.dumps(dump))
+    # a second overlapping dump (auto-dump cascade) must not double-count
+    (node_dir / "Node1-flight-1.json").write_text(json.dumps(dump))
+
+    rep = analyze_node(str(node_dir))
+    assert rep["flight_anomalies"] == 2
+    assert rep["event_counts"]["flight.breaker"] == 1
+    assert rep["event_counts"]["flight.catchup"] == 1
+    # wall-aligned: breaker (100.5) falls in the view-0 segment, catchup
+    # (102.5) after the view change -> view-1 segment
+    assert rep["views"][0]["events"].get("flight.breaker") == 1
+    assert rep["views"][1]["events"].get("flight.catchup") == 1
 
 
 def test_waterfall_out_of_order_points_stay_disjoint():
