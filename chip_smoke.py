@@ -149,7 +149,50 @@ drives the port's paths on the card:
      ledger and state equal every validator's (rebuilt from its stores
      after the run) and a GET_NYM read_proof from its client port
      verifies under the pool's BLS keys;
-  9. times: per kernel, the median of CUDA-event-timed launches after
+  9. path H, the scale-out rings (slice 11). Each pool run reads its
+     ring through run_load's on_pin hook and fails unless every txn was
+     ordered with the ledgers agreeing, no shape went unpinned, and
+     every dispatch beyond one a signature repeats a signature that sat
+     in a wave not yet resolved (the ring dedups only against its cache
+     and within a wave: those repeats are counted, any other fails).
+     H1, the multi-lane ring: run_load(4, 300, "cuda",
+     config_overrides=dict(PIPELINE_DEVICES=4)) twice, in turns with its
+     "cpu" twin: four lanes (each its own supervised verifier and
+     breaker, its own worker thread) wrapped onto the card; each run
+     fails unless the ring is a MultiDeviceCryptoPipeline of four CUDA
+     lanes, every lane dispatched, every lane's supervisor routed
+     nothing off the card, and K3 = K4 = the lanes' waves after pin(),
+     at least one; one more run under torch.profiler gives the card's
+     busy time, the time at least one kernel ran and their difference,
+     the lanes' overlap; then path D's first batch through a four-lane
+     ring on four replicas, its verdicts equal path D's. H2, the
+     federated ring: python -m plenum_tpu_torch.parallel.crypto_service
+     --backend cuda spawned as a rostered crypto host, run_load(4, 300,
+     "cuda", config_overrides=dict(PIPELINE_REMOTE_HOSTS=<its socket>)):
+     one lane on the card and one remote lane; fails unless one remote
+     lane has a ship p95 above 0, both supervisors are clean and the
+     service's stats show dispatches and nothing off the card. Then the
+     kill rung: 200 items on a federated ring, the first 100 placed by
+     the ring (alternating lanes) and dispatched, the host SIGKILLed
+     under them, its breaker opened by direct batches to its supervisor
+     (the reference's recipe), the rest placed around it; every verdict
+     right, the items dispatched exactly once, device errors from the
+     waves in flight, no remote wave after its breaker opened, only the
+     remote breaker open; the host restarted on the same socket, and
+     pumping the ring alone must close its breaker within its cooldown
+     and 10 s. H3, multi-host on one rank: init_multihost on an nccl
+     group of world size 1 (NCCL refuses two ranks on one GPU),
+     global_mesh over four lanes wrapped onto the card, shard_host_batch
+     of path B's host batch, ShardedCryptoPlane.step_bytes, which
+     gathers the shard roots and sums the count over the group (NCCL
+     all_gather and all_reduce): verdicts, root and count equal path
+     B's; prints the build-cache report. H4, where a node process's
+     host time goes: tools/perf_budget.run_budget(4, 300) (four
+     start_node processes under cProfile on service:cuda) and
+     tools/micro_costs.run(4, 300), each printed on a line of its own;
+     measurements, failing only if the pool did not order every txn or
+     wrote no profile;
+ 10. times: per kernel, the median of CUDA-event-timed launches after
      warm-up, its plain version's time, and its bound on this card (K3-K6,
      one quad of four threads per item, at 32, 64 and 128 threads per
      block; the interior hash at 32, 64 and 128 threads a block with
@@ -169,7 +212,7 @@ drives the port's paths on the card:
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails if a kernel of that path was never launched.
 The card's verifiers are bare (a fault raises), but for the rings of
-paths D, E and F and path G's service and card nodes, which are
+paths D, E, F and H and path G's service and card nodes, which are
 supervised as the reference pool wires them: those paths fail if the
 supervisor fell back to the CPU, hedged, or saw a device error.
 Prints JSON lines (kernels, paths, device) and, last, one JSON object
@@ -437,8 +480,9 @@ def host_profile(prof: cProfile.Profile) -> dict:
                                             key=lambda kv: -kv[1][2])[:20]]}
 
 
-# the sizes of paths E, F and G (module docstring); a rehearsal on the
-# CPU patches them smaller and F_BACKEND and G_BACKEND to "torch"
+# the sizes of paths E, F, G and H (module docstring); a rehearsal on
+# the CPU patches them smaller and F_BACKEND, G_BACKEND and H_BACKEND to
+# "torch"
 PREFILL = 100_000
 F_BACKEND = "cuda"
 F1_TXNS, F1_RUNS = 300, 2
@@ -447,6 +491,10 @@ F3_BATCHES, F3_REQUESTS = 5, 1000
 G_BACKEND = "cuda"
 G1_TXNS, G1_WINDOW, G1_RUNS = 600, 300, 3
 G3_TXNS, G4_NYMS = 200, 200
+H_BACKEND = "cuda"
+H_LANES, H_TXNS, H1_RUNS = 4, 300, 2
+H2_KILL_ITEMS, H2_PROBE_SLACK_S = 200, 10.0
+H4_TXNS = 300
 
 
 def replica_state(names, n_prefill: int, rng) -> dict:
@@ -867,7 +915,9 @@ def replica_path(state, batch_device, off_card_check) -> dict:
 class DeviceWindow:
     """torch.profiler over the card from construction to stop() ->
     (device busy ms, device ms by name); the busy time is a string
-    saying why where the profiler cannot trace the card."""
+    saying why where the profiler cannot trace the card. After stop(),
+    `union_ms` is the time at least one device activity ran: busy ms
+    less the time activities overlapped."""
 
     def __init__(self):
         import torch
@@ -882,12 +932,19 @@ class DeviceWindow:
         torch.cuda.synchronize()
         self._prof.stop()
         names: dict[str, float] = {}
+        spans = []
         for ev in self._prof.events():
             if ev.device_type == DeviceType.CUDA:
                 names[ev.name] = (names.get(ev.name, 0.0)
                                   + ev.time_range.elapsed_us() / 1e3)
+                spans.append((ev.time_range.start, ev.time_range.end))
         busy = sum(names.values()) if names else \
             "not measured: the profiler traced nothing"
+        union_us, reach = 0.0, float("-inf")
+        for start, end in sorted(spans):
+            union_us += max(0.0, end - max(start, reach))
+            reach = max(reach, end)
+        self.union_ms = union_us / 1e3 if spans else busy
         return busy, names
 
 
@@ -905,19 +962,16 @@ def pool_runs(off_card_check, device_window) -> dict:
     ordered, the ledgers agree, the ring's supervisor routed nothing off
     the card, no shape went unpinned and K3 + K4 launched inside the
     timed window (the launch counters are set to 0, and the profiler
-    opened, by the ring's pin(), which run_load calls once its warm-up
-    is over). TPS and launches come from the runs without a profiler,
+    opened, by run_load's on_pin hook, which it calls with its ring once
+    the ring is warmed and pinned). TPS and launches come from the runs without a profiler,
     the device busy time from the profiled one. `device_window()` -> an
     object whose stop() gives (busy ms, ms by name)."""
     from plenum_tpu_torch import ops
-    from plenum_tpu_torch.parallel.pipeline import CryptoPipeline
     from plenum_tpu_torch.tools.local_pool import run_load
-    real_pin = CryptoPipeline.pin
     timed: dict = {}
 
-    def pin_then_count(self):
-        real_pin(self)
-        timed["pipe"] = self
+    def pinned(pipe):
+        timed["pipe"] = pipe
         ops.reset_counts()
         if timed["profiler"] == "device":
             timed["window"] = device_window()
@@ -935,11 +989,9 @@ def pool_runs(off_card_check, device_window) -> dict:
         either open from pin() to the run's end."""
         timed.clear()
         timed["profiler"] = profiler
-        CryptoPipeline.pin = pin_then_count
         try:
-            r = run_load(4, n_txns, F_BACKEND, **kw)
+            r = run_load(4, n_txns, F_BACKEND, on_pin=pinned, **kw)
         finally:
-            CryptoPipeline.pin = real_pin
             if isinstance(profiler, cProfile.Profile):
                 profiler.disable()
         if "pipe" not in timed:
@@ -1493,6 +1545,451 @@ def production_pool(off_card_check, batch_device, state) -> dict:
             "launches": counts, "summary": pipe.summary(),
             "commit_stage": commit_stage_stats(nodes[names[0]].metrics),
             "controller": ctl.trajectory() if ctl is not None else None}
+
+
+def _lane_devices(pipe) -> list:
+    """Each lane's device, read beneath its supervisor."""
+    from plenum_tpu_torch.parallel.pipeline import _device_of
+    return [str(_device_of(lane.inner)) for lane in pipe.lanes]
+
+
+def _spawn_service(sock: str, log_path: str):
+    """`python -m plenum_tpu_torch.parallel.crypto_service` on H_BACKEND
+    at `sock`, as an operator starts a rostered crypto host -> the process
+    once its socket accepts (the service warms its verifier before it
+    binds)."""
+    import socket as socket_mod
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    with open(log_path, "ab") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "plenum_tpu_torch.parallel.crypto_service",
+             "--socket", sock, "--backend", H_BACKEND, "--min-batch", "1"],
+            stdout=log, stderr=subprocess.STDOUT, env=env)
+    deadline = time.monotonic() + 180.0
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            with open(log_path) as fh:
+                tail = fh.read()[-2000:]
+            raise AssertionError(f"crypto service exited {proc.returncode}: "
+                                 + tail)
+        try:
+            with socket_mod.socket(socket_mod.AF_UNIX) as s:
+                s.connect(sock)
+            return proc
+        except OSError:
+            time.sleep(0.1)
+    proc.kill()
+    raise AssertionError("crypto service never bound its socket")
+
+
+def scale_out_path(off_card_check, d_batch, device_window) -> dict:
+    """Path H (module docstring): the multi-lane ring (H1), the federated
+    ring with one rostered crypto host (H2), multi-host on one rank (H3)
+    and the Amdahl budget of the TCP pool's node processes (H4).
+    `d_batch` -> (path D's first batch of requests, its verdicts, the
+    verkey lookup, path B's host batch and its verdicts and root);
+    `device_window()` as in pool_runs."""
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from plenum_tpu_torch import ops
+    from plenum_tpu_torch.config import Config
+    from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
+    from plenum_tpu_torch.node.client_authn import CoreAuthNr, ReqAuthenticator
+    from plenum_tpu_torch.parallel.crypto_service import \
+        ServiceEd25519Verifier
+    from plenum_tpu_torch.parallel.federation import (FederatedCryptoPipeline,
+                                                      make_federated_pipeline)
+    from plenum_tpu_torch.parallel.pipeline import (MultiDeviceCryptoPipeline,
+                                                    make_crypto_pipeline)
+    from plenum_tpu_torch.parallel.supervisor import find_supervisor
+    from plenum_tpu_torch.tools.local_pool import run_load
+
+    lane_type = "cuda" if H_BACKEND == "cuda" else "cpu"
+    work = tempfile.mkdtemp(prefix="h_")
+    out: dict = {"backend": H_BACKEND}
+    timed: dict = {}
+
+    def pinned(pipe):
+        """run_load's on_pin: the ring's counters as the timed phase
+        starts, the launch counters set to 0."""
+        timed["pipe"] = pipe
+        timed["dispatches"] = [d_["dispatches"] for d_ in pipe.device_state()]
+        timed["items"] = pipe.stats["dispatched_items"]
+        timed["repeats"] = pipe.inflight_repeats
+        ops.reset_counts()
+        if timed["profiled"]:
+            timed["window"] = device_window()
+
+    def ring_run(what: str, overrides: dict, profiled: bool = False) -> tuple:
+        """run_load on H_BACKEND with `overrides` -> (its result, its ring,
+        K3/K4 launched and each lane's dispatches in the timed phase, the
+        ring's dispatches beyond one a signature, the device window's
+        (busy ms, ms by name, busy union ms) when `profiled`). Fails
+        unless every txn was ordered, the ledgers agree, no shape went
+        unpinned, and every dispatch beyond one a signature repeats a
+        signature that sat in a wave not yet resolved (the ring's dedup
+        scope, ROADMAP C): a dispatch the dedup should have caught fails
+        the run."""
+        timed.clear()
+        timed["profiled"] = profiled
+        r = run_load(4, H_TXNS, H_BACKEND, config_overrides=overrides,
+                     on_pin=pinned)
+        window = None
+        if "window" in timed:
+            busy, by_name = timed["window"].stop()
+            window = (busy, by_name, timed["window"].union_ms)
+        if "pipe" not in timed:
+            raise AssertionError(f"{what}: run_load never pinned its ring")
+        pipe = timed["pipe"]
+        if r["txns_ordered"] != r["txns_requested"] or \
+                not r["ledger_sizes_agree"]:
+            raise AssertionError(f"{what}: {r['txns_ordered']} of "
+                                 f"{r['txns_requested']} ordered, ledgers "
+                                 f"agree: {r['ledger_sizes_agree']}")
+        if r["pipeline"]["unpinned_shapes"]:
+            raise AssertionError(f"{what}: unpinned shapes")
+        beyond = pipe.stats["dispatched_items"] - timed["items"] \
+            - r["txns_requested"]
+        repeats = pipe.inflight_repeats - timed["repeats"]
+        if beyond != repeats:
+            raise AssertionError(
+                f"{what}: {beyond} dispatches beyond one a signature, of "
+                f"which {repeats} repeat a signature in a wave not yet "
+                f"resolved")
+        counts = dict(ops.LAUNCHES)
+        lane_disp = [d_["dispatches"] - n_ for d_, n_ in
+                     zip(pipe.device_state(), timed["dispatches"])]
+        return r, pipe, counts, lane_disp, beyond, window
+
+    def brief(r: dict) -> dict:
+        return {k_: r.get(k_) for k_ in (
+            "txns_ordered", "txns_requested", "seconds", "tps",
+            "p50_latency_ms", "p99_latency_ms", "ledger_sizes_agree",
+            "backend_state")}
+
+    def twin_run(what: str) -> dict:
+        r = run_load(4, H_TXNS, "cpu")
+        if r["txns_ordered"] != r["txns_requested"]:
+            raise AssertionError(f"{what}: the cpu twin ordered "
+                                 f"{r['txns_ordered']} of "
+                                 f"{r['txns_requested']}")
+        return brief(r)
+
+    h_counts = {k_: 0 for k_ in ops.LAUNCHES}
+
+    def add_counts(counts: dict) -> None:
+        for k_, v in counts.items():
+            h_counts[k_] += v
+
+    def h1_run(what: str, profiled: bool = False) -> dict:
+        r, pipe, counts, lane_disp, beyond, window = ring_run(
+            what, dict(PIPELINE_DEVICES=H_LANES), profiled)
+        if type(pipe) is not MultiDeviceCryptoPipeline or \
+                len(pipe.lanes) != H_LANES or \
+                {d_.split(":")[0] for d_ in _lane_devices(pipe)} != \
+                {lane_type} or not all(
+                    l_.threaded == (lane_type == "cuda") for l_ in pipe.lanes):
+            raise AssertionError(f"{what}: not {H_LANES} {lane_type} lanes: "
+                                 f"{type(pipe).__name__} "
+                                 f"{_lane_devices(pipe)}")
+        state = pipe.device_state()
+        if any(d_["dispatches"] < 1 for d_ in state):
+            raise AssertionError(f"{what}: a lane never dispatched: {state}")
+        for k_, lane in enumerate(pipe.lanes):
+            off_card_check(f"{what} lane {k_}", lane.inner)
+        if counts["ed25519_decompress"] != counts["ed25519_verify"] or \
+                counts["ed25519_verify"] != sum(lane_disp) or \
+                counts["ed25519_verify"] < 1:
+            raise AssertionError(f"{what}: K3 {counts['ed25519_decompress']}"
+                                 f", K4 {counts['ed25519_verify']} against "
+                                 f"{lane_disp} lane dispatches")
+        pipe.close()
+        run = {**brief(r), "launches": counts,
+               "lane_dispatches_timed": lane_disp,
+               "dispatched_beyond_unique_signatures": beyond,
+               "lanes": state, "lane_devices": _lane_devices(pipe),
+               "pipeline": {k_: r["pipeline"].get(k_) for k_ in (
+                   "dispatches", "dispatched_items", "items_per_dispatch",
+                   "pipeline_dedup_ratio", "pad_waste", "unpinned_shapes")}}
+        if window is not None:
+            busy, by_name, union = window
+            wall = r["seconds"] * 1e3
+            run.update({"device_kernel_ms": busy, "device_ms_by_name": by_name,
+                        "device_busy_union_ms": union,
+                        "lanes_overlap_ms": busy - union
+                        if isinstance(busy, float) else busy,
+                        "device_busy_share": union / wall
+                        if isinstance(union, float) else union})
+        return run
+
+    # --- H1: the multi-lane ring, four lanes wrapped onto the card --------
+    t_h = time.perf_counter()
+    dev_runs, cpu_runs = [], []
+    for i in range(H1_RUNS):       # in turns: drift on the host hits both
+        dev_runs.append(h1_run(f"path H1 run {i}"))
+        add_counts(dev_runs[-1]["launches"])
+        cpu_runs.append(twin_run(f"path H1 twin {i}"))
+    med = statistics.median(d_["tps"] for d_ in dev_runs)
+    med_cpu = statistics.median(c_["tps"] for c_ in cpu_runs)
+    # whether the lanes' waves overlap on the card: one more run, the
+    # profiler open over its timed phase (its launches are not added)
+    profiled = h1_run("path H1 under torch.profiler", profiled=True)
+    # path D's first four-replica batch through a four-lane ring
+    d_reqs, d_verdicts, get_verkey = d_batch["ring"]
+    ops.reset_counts()
+    pipe4 = make_crypto_pipeline(Config(PIPELINE_SHA_MIN_BATCH=512),
+                                 H_BACKEND, n_devices=H_LANES)
+    authns = []
+    for _ in range(4):
+        a_ = ReqAuthenticator()
+        a_.register_authenticator(CoreAuthNr(verifier=pipe4.verifier(),
+                                             get_verkey=get_verkey))
+        authns.append(a_)
+    # warmed, not pinned: as path D's warm-up batch does, the batch notes
+    # its full key-table shape (a pinned ring would split it at the
+    # prewarm's 64-key table)
+    pipe4.prewarm([1024])
+    ops.reset_counts()
+    t_d = time.perf_counter()
+    got = [a_.authenticate_batch(d_reqs) for a_ in authns]
+    d_ms = (time.perf_counter() - t_d) * 1e3
+    for v in got:
+        if v.tolist() != d_verdicts.tolist():
+            raise AssertionError("path H1: the four-lane ring's verdicts on "
+                                 "path D's batch differ from the single "
+                                 "ring's")
+    for k_, lane in enumerate(pipe4.lanes):
+        off_card_check(f"path H1 ring batch lane {k_}", lane.inner)
+    d_counts = dict(ops.LAUNCHES)
+    add_counts(d_counts)
+    pipe4.close()
+    out["H1"] = {"n_txns": H_TXNS, "lanes": H_LANES, "runs": dev_runs,
+                 "cpu_twin": cpu_runs, "tps_median": med,
+                 "cpu_tps_median": med_cpu, "tps_ratio_to_cpu": med / med_cpu,
+                 "under_torch_profiler": profiled,
+                 "ring_batch": {"replicas": 4, "requests": len(d_reqs),
+                                "wall_ms": d_ms, "launches": d_counts,
+                                "lanes": pipe4.device_state(),
+                                "equal_to_path_d": True},
+                 "path_s": time.perf_counter() - t_h}
+
+    # --- H2: the federated ring: a local lane and one crypto host --------
+    t_h2 = time.perf_counter()
+    sock = os.path.join(work, "fed.sock")
+    log_path = os.path.join(work, "service.log")
+    svc = _spawn_service(sock, log_path)
+    try:
+        svc_start_s = time.perf_counter() - t_h2
+        stats0 = ServiceEd25519Verifier(socket_path=sock).stats()
+        what = "path H2"
+        r, pipe, counts, lane_disp, beyond, _ = ring_run(
+            what, dict(PIPELINE_REMOTE_HOSTS=sock))
+        if type(pipe) is not FederatedCryptoPipeline or pipe.n_local != 1 \
+                or len(pipe.lanes) != 2:
+            raise AssertionError(f"{what}: not one local lane and one remote")
+        fed = pipe.federation_state()
+        if fed["remote_lanes"] != 1 or not fed["ship_ms_p95"] > 0:
+            raise AssertionError(f"{what}: federation {fed}, lane "
+                                 f"dispatches {lane_disp}")
+        off_card_check(f"{what} local lane", pipe.lanes[0].inner)
+        remote_sup = find_supervisor(pipe.lanes[1].inner)
+        if remote_sup.breaker.state != "closed" or any(
+                remote_sup.stats[k_] for k_ in (
+                    "fallback_batches", "hedge_wins", "device_errors",
+                    "deadline_misses", "verdict_forks")):
+            raise AssertionError(f"{what}: the remote lane's supervisor "
+                                 f"{remote_sup.supervisor_stats()}")
+        stats1 = ServiceEd25519Verifier(socket_path=sock).stats()
+        svc_delta = {k_: v - stats0.get(k_, 0) for k_, v in stats1.items()
+                     if isinstance(v, int)}
+        _require_service_clean(what, {**svc_delta, "plane": stats1.get(
+            "plane") or {}, "errors": stats1.get("errors", 0)})
+        if counts["ed25519_verify"] != lane_disp[0]:
+            raise AssertionError(f"{what}: K4 {counts['ed25519_verify']} "
+                                 f"against {lane_disp[0]} local waves")
+        add_counts(counts)
+        pipe.close()
+        h2 = {**brief(r), "federation": fed,
+              "dispatched_beyond_unique_signatures": beyond,
+              "lane_dispatches_timed": lane_disp, "lanes": pipe.device_state(),
+              "launches_local_lane": counts,
+              "service_dispatches_remote_k3_k4": svc_delta.get("dispatches"),
+              "service": svc_delta, "service_start_s": svc_start_s}
+
+        # the kill rung: the host dies under waves the ring's own
+        # placement gave it, then rejoins
+        signer = Ed25519Signer(seed=b"h2-kill".ljust(32, b"\0"))
+        items = [(b"h2-%d" % i, signer.sign(b"h2-%d" % i), signer.verkey)
+                 for i in range(H2_KILL_ITEMS)]
+        items[7] = (items[7][0], items[7][1][:32] + bytes(32), items[7][2])
+        want = [i != 7 for i in range(H2_KILL_ITEMS)]
+        kpipe = make_federated_pipeline(
+            Config(PIPELINE_MIN_BUCKET=16, PIPELINE_MAX_BUCKET=64,
+                   PIPELINE_FLUSH_WAIT=0.0), hosts=[sock], n_devices=1,
+            devices=None if H_BACKEND == "cuda" else ["cpu"])
+        kpipe.prewarm([16, 32])
+        kpipe.pin()
+        items0 = kpipe.stats["dispatched_items"]
+        k_sup = find_supervisor(kpipe.lanes[1].inner)
+        half = H2_KILL_ITEMS // 2
+        # no lane has a drain sample yet: unhinted placement takes the
+        # least-occupied lane, so the waves alternate between the two
+        toks = [kpipe.submit_verify(items[n:n + 20])
+                for n in range(0, half, 20)]
+        kpipe.service(force=True)
+        remote_waves_at_kill = kpipe.device_state()[1]["dispatches"]
+        svc.send_signal(signal.SIGKILL)
+        svc.wait(timeout=30)
+        got = [kpipe.collect_verify(t_, wait=True) for t_ in toks]
+        errors_in_flight = k_sup.stats["device_errors"]
+        # the dead host opens its breaker under direct batches (the
+        # reference's crypto-host-down recipe)
+        nudges = 0
+        while k_sup.breaker.state == "closed" and nudges < 30:
+            k_sup.verify_batch(items[:4])
+            nudges += 1
+        # the rest: placement routes around the open lane
+        remote_waves = kpipe.device_state()[1]["dispatches"]
+        toks = [kpipe.submit_verify(items[n:n + 20])
+                for n in range(half, H2_KILL_ITEMS, 20)]
+        got += [kpipe.collect_verify(t_, wait=True) for t_ in toks]
+        got = np.concatenate(got)
+        double = kpipe.stats["dispatched_items"] - items0 - H2_KILL_ITEMS
+        local_sup = find_supervisor(kpipe.lanes[0].inner)
+        remote_after = kpipe.device_state()[1]["dispatches"] - remote_waves
+        if got.tolist() != want or double != 0 or remote_waves_at_kill < 1 \
+                or errors_in_flight < 1 or remote_after:
+            raise AssertionError(
+                f"path H2 kill: verdicts right {got.tolist() == want}, "
+                f"{double} dispatched beyond the {H2_KILL_ITEMS} items, "
+                f"remote waves at the kill {remote_waves_at_kill}, device "
+                f"errors from them {errors_in_flight}, remote waves after "
+                f"its breaker opened {remote_after}")
+        if local_sup.breaker.state != "closed" or \
+                k_sup.breaker.state == "closed":
+            raise AssertionError(f"path H2 kill: breakers local "
+                                 f"{local_sup.breaker.state}, remote "
+                                 f"{k_sup.breaker.state}")
+        off_card_check("path H2 kill local lane", kpipe.lanes[0].inner)
+        # the host comes back on the same socket; the pump alone re-admits
+        t_restart = time.perf_counter()
+        svc = _spawn_service(sock, log_path)
+        back_s = time.perf_counter() - t_restart
+        t_up = time.perf_counter()
+        limit = k_sup.breaker.cooldown + H2_PROBE_SLACK_S
+        while k_sup.breaker.state != "closed" and \
+                time.perf_counter() - t_up < limit:
+            kpipe.service()
+            time.sleep(0.05)
+        rejoin_s = time.perf_counter() - t_up
+        if k_sup.breaker.state != "closed":
+            raise AssertionError(f"path H2 kill: the remote breaker stayed "
+                                 f"{k_sup.breaker.state} {rejoin_s:.1f} s "
+                                 f"after the host came back (limit "
+                                 f"{limit:.1f} s)")
+        kpipe.close()
+        h2["kill_rung"] = {
+            "items": H2_KILL_ITEMS, "dispatched_beyond_items": double,
+            "remote_waves_at_kill": remote_waves_at_kill,
+            "device_errors_from_waves_in_flight": errors_in_flight,
+            "nudges_to_open": nudges, "lanes": kpipe.device_state(),
+            "remote_supervisor": k_sup.supervisor_stats(),
+            "restart_s": back_s, "rejoin_after_restart_s": rejoin_s,
+            "probe_limit_s": limit}
+        h2["path_s"] = time.perf_counter() - t_h2
+        out["H2"] = h2
+    finally:
+        if svc.poll() is None:
+            svc.terminate()
+            try:
+                svc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                svc.kill()
+                svc.wait()
+
+    # --- H3: multi-host on one rank ---------------------------------------
+    t_h3 = time.perf_counter()
+    import socket as socket_mod
+
+    import torch.distributed as dist
+
+    from plenum_tpu_torch.ops.sha256 import digests_to_bytes
+    from plenum_tpu_torch.parallel.crypto_plane import (STEP_BYTES_SPECS,
+                                                        ShardedCryptoPlane)
+    from plenum_tpu_torch.parallel.mesh import lane_roster
+    from plenum_tpu_torch.parallel.multihost import (global_mesh,
+                                                     init_multihost,
+                                                     shard_host_batch)
+    with socket_mod.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ops.reset_counts()
+    group = "nccl" if H_BACKEND == "cuda" else "gloo"
+    preflight = init_multihost(coordinator=f"127.0.0.1:{port}",
+                               num_processes=1, process_id=0, backend=group)
+    try:
+        mesh = global_mesh(devices=lane_roster(
+            4, None if H_BACKEND == "cuda" else ["cpu"]))
+        if not mesh.in_group:
+            raise AssertionError("path H3: the global mesh is not over the "
+                                 "process group")
+        host_args, b_ok, b_root = d_batch["plane"]
+        args = [shard_host_batch(mesh, a_, spec)
+                for a_, spec in zip(host_args, STEP_BYTES_SPECS)]
+        # the plane gathers the shard roots and sums the count over the
+        # group's ranks itself (all_gather, all_reduce on the card)
+        ok_h, root_h, n_all = ShardedCryptoPlane(mesh).step_bytes(*args)
+        if not np.array_equal(ok_h.cpu().numpy(), b_ok) or \
+                digests_to_bytes(root_h[None]) != digests_to_bytes(
+                    b_root[None]) or int(n_all) != int(b_ok.sum()):
+            raise AssertionError("path H3: verdicts, root or count differ "
+                                 "from path B's plane")
+    finally:
+        dist.destroy_process_group()
+    h3_counts = dict(ops.LAUNCHES)
+    add_counts(h3_counts)
+    out["H3"] = {"group": group, "world_size": 1,
+                 "mesh": mesh.shape, "lanes": [str(d_) for d_ in mesh.flat],
+                 "build_cache": preflight, "n_ok": int(n_all),
+                 "launches": h3_counts, "equal_to_path_b": True,
+                 "path_s": time.perf_counter() - t_h3}
+    print(json.dumps({"build_cache_preflight": preflight}))
+
+    # --- H4: where a node process's host time goes ------------------------
+    t_h4 = time.perf_counter()
+    from plenum_tpu_torch.tools import micro_costs, perf_budget
+    budget = perf_budget.run_budget(4, H4_TXNS)
+    if "error" in budget:
+        raise AssertionError(f"path H4: {budget['error']}")
+    pool = budget["pool"]
+    if pool["txns_ordered"] != pool["txns_requested"]:
+        raise AssertionError(f"path H4: the profiled pool ordered "
+                             f"{pool['txns_ordered']} of "
+                             f"{pool['txns_requested']}")
+    shutil.rmtree(budget["profile_dir"], ignore_errors=True)
+    costs = micro_costs.run(4, H4_TXNS)
+    print(json.dumps({"perf_budget": {k_: budget[k_] for k_ in (
+        "txns", "ncpu", "sum_ms_per_txn", "sum_busy_ms_per_txn",
+        "busiest_node", "busiest_ms_per_txn", "wall_ms_per_txn",
+        "offloadable_fraction_sum", "offloadable_fraction_busiest",
+        "amdahl_ceiling_sum", "amdahl_ceiling_busiest")},
+        "pool_tps": pool.get("tps"), "backend": pool.get("backend")}))
+    print(json.dumps({"micro_costs": {k_: costs[k_] for k_ in (
+        "txns", "wall_ms_per_txn", "categories", "measured_ms_per_txn",
+        "residual_ms_per_txn", "offloadable_ms_per_txn",
+        "offloadable_fraction_of_wall")}}))
+    out["H4"] = {"perf_budget_offloadable_fraction_sum":
+                 budget["offloadable_fraction_sum"],
+                 "micro_costs_offloadable_fraction_of_wall":
+                 costs["offloadable_fraction_of_wall"],
+                 "path_s": time.perf_counter() - t_h4}
+    shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = h_counts
+    return out
 
 
 def main() -> int:
@@ -2103,6 +2600,9 @@ def main() -> int:
             raise AssertionError(f"{step}: n_ok is not the verdict count")
         plane_out[step] = {"lanes_staged": len(idxs_g),
                            "n_ok": int(n_ok_g), "first_call_s": plane_s}
+        if step == "step_bytes":        # path H3 feeds this batch again
+            h3_plane = ([a_.cpu().numpy() for a_ in args],
+                        ok_g.cpu().numpy(), root_g.cpu().numpy())
     graft_entry.dryrun_multichip(4)
     torch.cuda.synchronize()
     t_sharded_end = time.perf_counter()
@@ -2284,6 +2784,8 @@ def main() -> int:
         counts = {k_: ops.LAUNCHES[k_] - counts0[k_] for k_ in ops.LAUNCHES}
         got = ring_check(f"ring batch {b}", pipe, leds, ring_ref, bexpect,
                          out, before)
+        if b == 0:          # path H1 runs this batch on four lanes
+            h1_ring = (breqs, out[0][0].copy(), verkeys.get)
         # K3 + K4 once for the four replicas' wave; K1 once per SHA-256
         # block count of the batch's leaves for the commit wave's one
         # deduped level and once for the first replica's commit (the other
@@ -2447,6 +2949,18 @@ def main() -> int:
                      ("ed25519_decompress", "ed25519_verify"))
     tcp["path_s"] = time.perf_counter() - t_g
     print(json.dumps({"tcp_pool_path": tcp}))
+
+    # --- path H: the multi-lane, federated and multi-host rings (slice 11)
+    t_h = time.perf_counter()
+    ops.reset_counts()
+    scale = scale_out_path(require_nothing_off_card,
+                           {"ring": h1_ring, "plane": h3_plane}, DeviceWindow)
+    scale_counts = scale["launches"]
+    require_launched("scale-out", scale_counts,
+                     ("ed25519_decompress", "ed25519_verify",
+                      "merkle_reduce"))
+    scale["path_s"] = time.perf_counter() - t_h
+    print(json.dumps({"scale_out_path": scale}))
 
     # --- phase 3: times at the slice's shapes ------------------------------
     # the 1,000-request batch's own inputs
@@ -2625,7 +3139,7 @@ def main() -> int:
                    "probe": probe_counts, "ring": ring_counts,
                    "ring_sharded": ring_sharded_counts,
                    "replica": replica_counts, "pool": pool_counts,
-                   "tcp": tcp_counts}
+                   "tcp": tcp_counts, "scale_out": scale_counts}
     path_of = {"K1": "slice", "K2": "slice", "K2T": "slice", "K2L": "slice",
                "K3": "pool",
                "K4": "pool", "K5": "sharded", "K6": "sharded",
@@ -2761,6 +3275,12 @@ def main() -> int:
                 pool["F3"]["batches"][0]["launches"][name],
             "launches_per_tcp_g1_run":
                 tcp["G1"]["runs"][0]["launches"][name],
+            "launches_per_multilane_h1_run":
+                scale["H1"]["runs"][0]["launches"][name],
+            "launches_h2_local_lane": scale["H2"]["launches_local_lane"][name],
+            "launches_h2_remote_service_k3_k4":
+                scale["H2"]["service_dispatches_remote_k3_k4"]
+                if name in ("ed25519_decompress", "ed25519_verify") else None,
             "shape": shape,
             **sha_times})
     by_id = {k_["id"]: k_ for k_ in kernels}

@@ -151,6 +151,37 @@ def build_log(name: str) -> str:
         return ""
 
 
+def build_preflight(names=("sha256", "ed25519")) -> dict:
+    """This host's kernel build cache (the counterpart of the JAX
+    package's compile-cache preflight): for each source, the library its
+    current text and flags name and whether it is built under BUILD_DIR,
+    so a caller knows whether this host starts warm or pays nvcc; `stale`
+    counts libraries of other sources or flags beside them. Never
+    raises, never builds."""
+    out = {"build_dir": BUILD_DIR, "libraries": {}, "warm": True,
+           "stale": 0}
+    current = set()
+    for name in names:
+        try:
+            path = _lib_path(name)
+        except OSError:
+            out["libraries"][name] = None
+            out["warm"] = False
+            continue
+        built = os.path.exists(path)
+        current.add(os.path.basename(path))
+        out["libraries"][name] = {"library": os.path.basename(path),
+                                  "built": built}
+        out["warm"] = out["warm"] and built
+    try:
+        out["stale"] = sum(1 for f in os.listdir(BUILD_DIR)
+                           if f.startswith("lib") and f.endswith(".so")
+                           and f not in current)
+    except OSError:
+        pass
+    return out
+
+
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

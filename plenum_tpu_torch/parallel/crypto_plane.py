@@ -15,10 +15,12 @@ Merkle root over [n_leaves] leaf digests, sharded over a 2-D
   - verdict count: the per-shard counts, summed on the first device.
 
 The reference runs this as one shard_map program with an all_gather and
-a psum. Here one process drives every device of the mesh: it launches
+a psum. Here one process drives every device of its lanes: it launches
 each shard's kernels on that device's current stream, all shards before
-any synchronisation, then gathers. Collectives across processes
-(torch.distributed/NCCL) come with the multi-host work, not here.
+any synchronisation, then gathers. On a mesh over a process group
+(parallel/multihost.py `global_mesh`) each process verifies and reduces
+the shards of its own lanes, and the shard roots and the count cross
+the processes with torch.distributed's all_gather and all_reduce.
 """
 from __future__ import annotations
 
@@ -53,52 +55,78 @@ def _reduce_roots(roots: torch.Tensor) -> torch.Tensor:
     return sha_ops.merkle_reduce_pow2(roots.contiguous())
 
 
+# each step input's layout over the mesh (the reference's in_specs), in
+# the order step_bytes and step take them: Mesh.shard reads them
+_BYTES = ("inst", "sig", None)                  # u8 payloads [I, N, 32]
+_IDX = ("inst", "sig")                          # idx, r_sign [I, N]
+_LEAF = (("inst", "sig"), None)                 # leaves [L, 8]
+STEP_BYTES_SPECS = (_BYTES, _BYTES, None, _IDX, _BYTES, _LEAF)
+STEP_SPECS = ((None, "inst", "sig"), (None, None, "inst", "sig"), None,
+              _IDX, ("inst", "sig", None), _IDX, _LEAF)
+
+
+def _across_processes(roots: torch.Tensor, n_ok: torch.Tensor):
+    """Every process's shard roots, in rank order (each holds as many
+    shards), and the job's verdict count: all_gather and all_reduce over
+    the default process group."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(roots) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, roots)
+    n_ok = n_ok.clone()
+    dist.all_reduce(n_ok)
+    return torch.cat(parts), n_ok
+
+
 class ShardedCryptoPlane:
-    """Verify + Merkle root + verdict count of one grid over a mesh."""
+    """Verify + Merkle root + verdict count of one grid over a mesh.
+
+    Each input is this process's part of the grid (all of it on one
+    process) as a tensor, or already cut for its lanes as
+    `multihost.shard_host_batch` leaves it. The verdicts returned are
+    this process's block of the grid; the root and the count are the
+    whole job's."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
 
-    def _blocks(self, grid_shape, leaves):
-        """-> per shard (device, grid rows, grid columns, its leaves on
-        its device). The grid [I, N] must tile the mesh exactly, and each
+    def _shards(self, args, specs) -> list:
+        """-> per lane this process drives: (its device, its block of
+        every input). The grid must tile the mesh exactly, and each
         shard's leaf block be a power of two."""
-        inst, sig = self.mesh.shape["inst"], self.mesh.shape["sig"]
-        i_all, n_all = grid_shape
-        if i_all % inst or n_all % sig:
-            raise ValueError(f"grid {list(grid_shape)} does not tile the "
-                             f"{inst}x{sig} mesh")
-        n_leaves = leaves.shape[0]
-        l_loc = n_leaves // self.mesh.size
-        if l_loc * self.mesh.size != n_leaves or l_loc & (l_loc - 1) \
-                or l_loc == 0:
-            raise ValueError(f"{n_leaves} leaves: want a power of two per "
-                             f"shard over {self.mesh.size} shards")
-        i_loc, n_loc = i_all // inst, n_all // sig
-        for k, dev in enumerate(self.mesh.flat):
-            a, b = divmod(k, sig)
-            yield (dev, slice(a * i_loc, (a + 1) * i_loc),
-                   slice(b * n_loc, (b + 1) * n_loc),
-                   leaves[k * l_loc:(k + 1) * l_loc].contiguous().to(dev))
+        lanes = self.mesh.flat[self.mesh.local]
+        cut = [a if isinstance(a, list) else self.mesh.shard(a, spec)
+               for a, spec in zip(args, specs)]
+        if any(len(c) != len(lanes) for c in cut):
+            raise ValueError(f"inputs cut for {[len(c) for c in cut]} lanes, "
+                             f"not {len(lanes)}")
+        for leaves in cut[-1]:
+            n = leaves.shape[0]
+            if n == 0 or n & (n - 1):
+                raise ValueError(f"{n} leaves a shard: want a power of two")
+        return list(zip(lanes, zip(*cut)))
 
-    def _combine(self, outs, grid_shape):
-        """Gather the shards' verdict blocks, roots and counts onto the
-        first shard's device -> (ok bool[I, N], root int32[8], n_ok)."""
-        sig = self.mesh.shape["sig"]
-        dev0 = self.mesh.flat[0]
+    def _combine(self, outs):
+        """Gather the shards' verdict blocks, roots and counts onto this
+        process's first lane, the roots and counts of a process group
+        across its processes -> (ok bool[I, N], root int32[8], n_ok)."""
+        rows, cols = self.mesh.local_grid()
+        dev0 = self.mesh.flat[self.mesh.local][0]
         with _on(dev0):
-            rows = [torch.cat([ok.to(dev0) for ok, _, _ in outs[a:a + sig]],
-                              dim=1) for a in range(0, len(outs), sig)]
-            ok = torch.cat(rows, dim=0).reshape(grid_shape)
-            root = _reduce_roots(torch.stack([r.to(dev0) for _, r, _ in outs]))
+            ok = torch.cat([torch.cat([o.to(dev0) for o, _, _ in
+                                       outs[a * cols:(a + 1) * cols]], dim=1)
+                            for a in range(rows)], dim=0)
+            roots = torch.stack([r.to(dev0) for _, r, _ in outs])
             n_ok = torch.stack([c.to(dev0) for _, _, c in outs]).sum(
                 dtype=torch.int32)
+            if self.mesh.in_group:
+                roots, n_ok = _across_processes(roots, n_ok)
+            root = _reduce_roots(roots)
         return ok, root, n_ok
 
     @staticmethod
-    def _shard_out(ok, rs, cs, leaves):
-        """A shard's verdict block [rows, columns], subtree root, count."""
-        ok = ok.reshape(rs.stop - rs.start, cs.stop - cs.start)
+    def _shard_out(ok, idx, leaves):
+        """A shard's verdict block (idx's shape), subtree root, count."""
+        ok = ok.reshape(idx.shape)
         return (ok, sha_ops.merkle_reduce_pow2(leaves),
                 ok.sum(dtype=torch.int32))
 
@@ -110,15 +138,14 @@ class ShardedCryptoPlane:
         the grid; keys_u8 uint8[U, 32] is replicated; leaves int32[L, 8]
         shard over the flattened mesh (a power of two per shard)."""
         outs = []
-        for dev, rs, cs, shard_leaves in self._blocks(idx.shape, leaves):
+        for dev, (s, h, k, i, r, lv) in self._shards(
+                (s_u8, h_u8, keys_u8, idx, r_u8, leaves), STEP_BYTES_SPECS):
             with _on(dev):
-                def blk(t):
-                    return t[rs, cs].contiguous().to(dev).reshape(-1, 32)
                 ok = ed_ops.verify_kernel_bytes(
-                    blk(s_u8), blk(h_u8), keys_u8.to(dev),
-                    idx[rs, cs].contiguous().to(dev).reshape(-1), blk(r_u8))
-                outs.append(self._shard_out(ok, rs, cs, shard_leaves))
-        return self._combine(outs, idx.shape)
+                    s.reshape(-1, 32), h.reshape(-1, 32), k, i.reshape(-1),
+                    r.reshape(-1, 32))
+                outs.append(self._shard_out(ok, i, lv))
+        return self._combine(outs)
 
     def step(self, s_dig, h_dig, aq_unique, idx, ry, r_sign, leaves):
         """The limb-staged dispatch over the grid -> (ok bool[I, N],
@@ -130,20 +157,17 @@ class ShardedCryptoPlane:
         tables of every row with K5 and gathers them by idx in K6);
         leaves as in step_bytes."""
         outs = []
-        for dev, rs, cs, shard_leaves in self._blocks(idx.shape, leaves):
+        for dev, (sd, hd, aq, i, ry_, rs, lv) in self._shards(
+                (s_dig, h_dig, aq_unique, idx, ry, r_sign, leaves), STEP_SPECS):
             with _on(dev):
-                m = (rs.stop - rs.start) * (cs.stop - cs.start)
+                m = i.numel()
                 ok = ed_ops.verify_kernel_indexed(
-                    s_dig[:, rs, cs].contiguous().to(dev).reshape(
-                        ed_ops.N_COMB, m),
-                    h_dig[:, :, rs, cs].contiguous().to(dev).reshape(
-                        ed_ops.N_WIN, ed_ops.N_QUARTERS, m),
-                    aq_unique.to(dev),
-                    idx[rs, cs].contiguous().to(dev).reshape(m),
-                    ry[rs, cs].contiguous().to(dev).reshape(m, ed_ops.NLIMB),
-                    r_sign[rs, cs].contiguous().to(dev).reshape(m))
-                outs.append(self._shard_out(ok, rs, cs, shard_leaves))
-        return self._combine(outs, idx.shape)
+                    sd.reshape(ed_ops.N_COMB, m),
+                    hd.reshape(ed_ops.N_WIN, ed_ops.N_QUARTERS, m), aq,
+                    i.reshape(m), ry_.reshape(m, ed_ops.NLIMB),
+                    rs.reshape(m))
+                outs.append(self._shard_out(ok, i, lv))
+        return self._combine(outs)
 
 
 class ShardedTorchEd25519Verifier(TorchEd25519Verifier):
@@ -156,6 +180,10 @@ class ShardedTorchEd25519Verifier(TorchEd25519Verifier):
                  cache_size: int = 65536):
         inst = plane.mesh.shape["inst"]
         sig = plane.mesh.shape["sig"]
+        if plane.mesh.in_group:
+            raise ValueError("a verifier dispatches one process's traffic; "
+                             "a plane over a process group is stepped on "
+                             "every rank")
         if inst & (inst - 1) or sig & (sig - 1):
             raise ValueError(
                 f"mesh axes must be powers of two for the pow2-padded "

@@ -57,8 +57,12 @@ def lane_roster(n_lanes: Optional[int] = None,
 
 class Mesh:
     """A ("inst", "sig") grid of torch devices: `devices` is the grid as
-    an object array [inst, sig], `shape` the axis sizes by name, and
-    `flat` the devices in shard order (inst-major)."""
+    an object array [inst, sig], `shape` the axis sizes by name,
+    `flat` the devices in shard order (inst-major), and `local` the
+    slice of `flat` this process drives. A mesh of one process drives
+    all of it; `multihost.global_mesh` makes a mesh over a job's
+    process group (`in_group`), whose other entries name the other
+    processes' lanes."""
 
     def __init__(self, devices: Sequence[torch.device], inst: int, sig: int):
         if len(devices) != inst * sig:
@@ -68,10 +72,53 @@ class Mesh:
         for k, d in enumerate(self.flat):
             self.devices[k // sig, k % sig] = d
         self.shape = {"inst": inst, "sig": sig}
+        self.local = slice(0, len(self.flat))
+        self.in_group = False
 
     @property
     def size(self) -> int:
         return len(self.flat)
+
+    def local_grid(self) -> tuple[int, int]:
+        """The shards this process drives, `flat[local]`, as a block of
+        the grid -> (rows, columns) of shards: whole "inst" rows, or a
+        run of one row's "sig" columns. Local shard j sits at
+        (j // columns, j % columns) of the block."""
+        start, n = self.local.start, self.local.stop - self.local.start
+        sig = self.shape["sig"]
+        if n > 0 and n % sig == 0 and start % sig == 0:
+            return n // sig, sig
+        if n > 0 and sig % n == 0 and start % sig + n <= sig:
+            return 1, n
+        raise ValueError(f"lanes {start}..{start + n - 1} are no block of "
+                         f"the {self.shape['inst']}x{sig} mesh")
+
+    def shard(self, t: torch.Tensor, spec) -> list[torch.Tensor]:
+        """Cut `t`, this process's part of an input laid out by `spec`,
+        into one block per lane it drives, each on its lane. `spec` names
+        each axis of t as the reference's PartitionSpec does: None (not
+        cut), "inst" or "sig" (cut over that mesh axis) or ("inst",
+        "sig") (cut over the flattened mesh); spec None gives every lane
+        all of t. Raises when an axis does not split evenly."""
+        lanes = self.flat[self.local]
+        if spec is None:
+            return [t.contiguous().to(d) for d in lanes]
+        rows, cols = self.local_grid()
+        out = []
+        for j, dev in enumerate(lanes):
+            parts = {None: (1, 0), "inst": (rows, j // cols),
+                     "sig": (cols, j % cols), ("inst", "sig"): (len(lanes), j)}
+            index = []
+            for ax, name in enumerate(spec):
+                n_parts, k = parts[name]
+                size = t.shape[ax]
+                if size % n_parts:
+                    raise ValueError(f"axis {ax} of {list(t.shape)} does not "
+                                     f"tile {n_parts} {name} shards")
+                step = size // n_parts
+                index.append(slice(k * step, (k + 1) * step))
+            out.append(t[tuple(index)].contiguous().to(dev))
+        return out
 
 
 def make_mesh(n_devices: Optional[int] = None,

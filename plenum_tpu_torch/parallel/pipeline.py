@@ -63,10 +63,10 @@ plain versions on CPU tensors), so the tests exercise the same code the
 card runs: a wave launches K3 + K4 (or the sharded plane's kernels),
 the SHA lane K1 and an append wave `k_merkle_wave` (ops/sha256.py).
 
-This is the reference's single-device ring. Not here yet: the
-multi-device and federated rings (`n_devices != 1` and
-`PIPELINE_REMOTE_HOSTS` raise NotImplementedError, ROADMAP A7; the
-`lane` arguments of the shared wave helpers are their seam). The BLS
+The multi-device ring (`MultiDeviceCryptoPipeline`, one lane per device
+of `parallel/mesh.py`'s `lane_roster`, each with its own supervised
+verifier) and the federated one (parallel/federation.py) share the
+single ring's wave helpers through their `lane` arguments. The BLS
 lane's default engine is the host `BlsCryptoVerifier` (crypto/bls.py,
 native bn254), and the cmt lane's "commit"/"multiproof" jobs run the
 host KZG engine (state/commitment/kzg.py), as the reference's do.
@@ -400,6 +400,14 @@ class CryptoPipeline:
             "cmt_waves": 0, "cmt_levels": 0, "cmt_host_fallbacks": 0,
             "unpinned_shapes": 0,
         }
+        # items planned into a wave while a packed or in-flight wave that
+        # holds the same item has not resolved: the dedup looks only at
+        # the verdict cache and the wave it packs (ROADMAP C), so these
+        # reach the device again. Kept apart from `stats`, the
+        # reference's counters. _unresolved counts each item's copies
+        # in waves not yet resolved.
+        self.inflight_repeats = 0
+        self._unresolved: dict[bytes, int] = {}
 
     # --- shared plumbing ---------------------------------------------------
 
@@ -631,6 +639,9 @@ class CryptoPipeline:
                         wave.overflowed = True
                         break
                     wave_vks.add(v)
+                    n_unresolved = self._unresolved.get(key, 0)
+                    self.inflight_repeats += n_unresolved > 0
+                    self._unresolved[key] = n_unresolved + 1
                     in_wave[key] = len(wave.items)
                     tok.plan[i] = ("w", wave, len(wave.items))
                     wave.items.append((m, s, v))
@@ -789,6 +800,9 @@ class CryptoPipeline:
         for j, key in enumerate(wave.keys):
             verdict_cache_put(self._ed_cache, self._CACHE_MAX, key,
                               bool(ok[j]))
+            n_unresolved = self._unresolved.pop(key, 1) - 1
+            if n_unresolved > 0:
+                self._unresolved[key] = n_unresolved
         t_done = self._now()
         if self.controller is not None:
             self.controller.note_wave(
@@ -1259,6 +1273,536 @@ class CryptoPipeline:
         return out
 
 
+class _DeviceLane:
+    """One chip of the multi-device ring: its own wave queue, its own
+    pinned-bucket/compiled-shape set, its own (supervised) verifier —
+    and therefore its own breaker. Threaded lanes dispatch from a worker
+    because same-thread async dispatch SERIALIZES executions across
+    devices (measured on XLA:CPU: 4 async waves cost 4x one wave; 4
+    threaded waves cost 1x). A lane's worker launches on its thread's
+    current stream, the default one: lanes that share a card serialize
+    there (correct, no scaling; parallel/mesh.py lane_roster)."""
+
+    __slots__ = ("idx", "inner", "bucketed", "on_card", "threaded",
+                 "staged", "first_staged", "packed", "inflight", "shapes",
+                 "stats", "_q", "_worker")
+
+    def __init__(self, idx: int, inner, threaded: Optional[bool] = None):
+        self.idx = idx
+        self.inner = inner
+        dev = _device_of(inner)
+        self.bucketed = dev is not None
+        # a lane whose chain ends bare on the card lets an inner's error
+        # out (as the single ring does); a host lane re-verifies on the CPU
+        self.on_card = dev is not None and dev.type == "cuda"
+        if threaded is None:
+            # auto: only lanes on the card need a dispatch thread; CPU
+            # lanes (the plain versions, tests, sims) stay inline so the
+            # deterministic fuzz harness replays exactly. The reference
+            # threads every lane whose inner has a device, which every
+            # torch verifier has, the CPU's included
+            threaded = self.on_card
+        self.threaded = bool(threaded)
+        self.staged: deque[_EdToken] = deque()
+        self.first_staged: Optional[float] = None
+        self.packed: Optional[_Wave] = None
+        self.inflight: Optional[_Wave] = None
+        self.shapes: set = set()
+        self.stats = {"dispatches": 0, "dispatched_items": 0,
+                      "coalesced_items": 0, "bucket_hits": 0,
+                      "pad_items": 0, "overflow_waves": 0,
+                      "unpinned_shapes": 0}
+        self._q = None
+        self._worker = None
+
+    # --- threaded dispatch hand-off ------------------------------------
+
+    def _ensure_worker(self) -> None:
+        if self._worker is not None:
+            return
+        import queue
+        import threading
+        self._q = queue.Queue()
+        self._worker = threading.Thread(
+            target=self._run_worker, name=f"pipeline-lane{self.idx}",
+            daemon=True)
+        self._worker.start()
+
+    def _run_worker(self) -> None:
+        while True:
+            wave = self._q.get()
+            if wave is None:
+                return
+            try:
+                tok = self.inner.submit_batch(wave.items)
+                wave.result = self.inner.collect_batch(tok, wait=True)
+            except Exception as e:
+                # the pump re-raises it on the card, else re-verifies
+                # on the CPU
+                wave.result = e
+            wave.done = True             # written before the event fires
+            wave.event.set()
+
+    def dispatch(self, wave: _Wave) -> None:
+        if self.threaded:
+            import threading
+            self._ensure_worker()
+            wave.event = threading.Event()
+            self._q.put(wave)
+        else:
+            wave.inner_tok = self.inner.submit_batch(wave.items)
+        self.inflight = wave
+
+    def poll(self, wait: bool = False):
+        """-> verdicts of the in-flight wave, or None if still flying.
+        Device errors degrade to a host re-verify (the same contract as
+        the single-ring pump: semantics never change, never a crash),
+        except on the card, where they raise."""
+        wave = self.inflight
+        if wave is None:
+            return None
+        if self.threaded:
+            if not wave.done:
+                if not wait:
+                    return None
+                # worker always terminates (the supervised inner hedges
+                # a wedged device at its deadline), so this wait ends
+                wave.event.wait()
+            got = wave.result
+            if isinstance(got, Exception):
+                if self.on_card:
+                    raise got
+                got = CpuEd25519Verifier().verify_batch(wave.items)
+            return got
+        try:
+            got = self.inner.collect_batch(wave.inner_tok, wait=wait)
+        except Exception:
+            if self.on_card:
+                raise
+            got = CpuEd25519Verifier().verify_batch(wave.items)
+        return got
+
+    def degraded(self) -> bool:
+        breaker = getattr(self.inner, "breaker", None)
+        state = getattr(breaker, "state", None)
+        return state is not None and state != "closed"
+
+    def breaker_state(self) -> Optional[str]:
+        breaker = getattr(self.inner, "breaker", None)
+        return getattr(breaker, "state", None)
+
+    def occupancy(self) -> int:
+        n = sum(len(t.items) - t.planned for t in self.staged)
+        if self.packed is not None:
+            n += self.packed.n_real
+        if self.inflight is not None:
+            n += self.inflight.n_real
+        return n
+
+    def close(self) -> None:
+        if self._worker is not None:
+            self._q.put(None)
+            self._worker.join(timeout=5.0)
+            self._worker = None
+
+
+class MultiDeviceCryptoPipeline(CryptoPipeline):
+    """The single submission ring sharded across N chips.
+
+    Each device gets an independent LANE: its own wave queue fed by the
+    same shape-bucket ladder (per-lane pinned-bucket set — prewarm/pin
+    compile each chip's own executables), its own double-buffered
+    dispatch, and its own supervised verifier, so each chip is an
+    INDEPENDENTLY BREAKABLE backend: a wedged chip opens that lane's
+    breaker and degrades that lane's waves to host fallback while every
+    other lane keeps dispatching. Ed25519 key tables live per lane
+    (each verifier's staged-row cache fills with the keys its traffic
+    carries — placement-pinned submitters therefore PARTITION the key
+    space; unhinted traffic replicates hot keys); the BLS table stays
+    host-shared (the pairing check is host-side).
+
+    Placement: `place(tag)` pins co-hosted sub-pool shards to distinct
+    chips (tag % n_lanes) so shard count scales crypto throughput
+    instead of queueing on one device; unhinted submissions go to the
+    least-backlogged HEALTHY lane (an open-breaker lane only receives
+    its pinned traffic — which its supervisor serves at host speed).
+
+    The verdict/digest caches, the BLS/SHA/commitment lanes, and the
+    AIMD controller are inherited shared state: content keys are pure
+    functions of bytes, so cross-lane sharing can never change a
+    verdict, and the controller steers the one flush-hold/bucket-floor
+    pair for the whole ring.
+    """
+
+    def __init__(self, ed_inners: Sequence, config=None, now=None,
+                 threaded: Optional[bool] = None, **kw):
+        if not ed_inners:
+            raise ValueError("MultiDeviceCryptoPipeline needs >= 1 lane")
+        super().__init__(ed_inner=ed_inners[0], config=config, now=now,
+                         **kw)
+        if threaded is None:
+            threaded = getattr(self.config, "PIPELINE_LANE_THREADS", None)
+        self.lanes = [_DeviceLane(i, inner, threaded=threaded)
+                      for i, inner in enumerate(ed_inners)]
+        self._rr = 0                     # round-robin cursor (unhinted)
+        self._bucketed = any(l.bucketed for l in self.lanes)
+
+    # --- clock / key plumbing across lanes ------------------------------
+
+    def set_clock(self, now) -> None:
+        super().set_clock(now)
+        for lane in self.lanes[1:]:
+            set_inner = getattr(lane.inner, "set_clock", None)
+            if callable(set_inner):
+                set_inner(now)
+
+    def evict_key(self, key) -> None:
+        super().evict_key(key)           # lane 0's ed inner + bls
+        for lane in self.lanes[1:]:
+            evict = getattr(lane.inner, "evict_key", None)
+            if callable(evict):
+                evict(key)
+
+    def close(self) -> None:
+        for lane in self.lanes:
+            lane.close()
+
+    # --- placement ------------------------------------------------------
+
+    def place(self, tag: int) -> Optional[int]:
+        return tag % len(self.lanes)
+
+    def healthy_lane(self, exclude=()) -> Optional[int]:
+        """The least-backlogged lane whose breaker is closed, skipping
+        `exclude` — the re-placement target the autopilot pins a sick
+        chip's shards to (the ring itself never reshuffles pinned
+        traffic; re-pinning is the EXTERNAL control plane's move)."""
+        skip = set(exclude)
+        pool = [l for l in self.lanes
+                if not l.degraded() and l.idx not in skip]
+        if not pool:
+            return None
+        return min(pool, key=lambda l: (l.occupancy(), l.idx)).idx
+
+    def _pick_lane(self, hint: Optional[int]) -> _DeviceLane:
+        if hint is not None:
+            # pinned submitters STAY pinned: a degraded lane serves its
+            # pinned traffic at host-fallback speed (one lane degrades,
+            # the ring does not reshuffle under it)
+            return self.lanes[hint % len(self.lanes)]
+        healthy = [l for l in self.lanes if not l.degraded()]
+        pool = healthy or self.lanes
+        best = min(pool, key=lambda l: (l.occupancy(),
+                                        (l.idx - self._rr)
+                                        % len(self.lanes)))
+        self._rr = (best.idx + 1) % len(self.lanes)
+        return best
+
+    # --- the ed lane, per device ----------------------------------------
+
+    def submit_verify(self, items: Sequence[VerifyItem],
+                      lane: Optional[int] = None) -> _EdToken:
+        now = self._now()
+        tok = _EdToken(list(items), now)
+        self.stats["submitted_items"] += len(tok.items)
+        target = self._pick_lane(lane)
+        if not target.staged:
+            target.first_staged = now
+        target.staged.append(tok)
+        return tok
+
+    def _lane_buckets(self, lane: _DeviceLane) -> list[int]:
+        return self._ed_buckets(lane.shapes)
+
+    def _lane_key_cap(self, lane: _DeviceLane) -> int:
+        return self._key_cap(lane.shapes)
+
+    def _note_lane_shape(self, lane: _DeviceLane, key) -> None:
+        if key not in lane.shapes:
+            lane.shapes.add(key)
+            if self.pinned:
+                lane.stats["unpinned_shapes"] += 1
+                self.stats["unpinned_shapes"] += 1
+
+    @property
+    def compiled_shapes(self) -> int:
+        # per-lane ed shapes (each chip compiles its own executables)
+        # plus the shared sha/cmt shape notes in the base set
+        return (sum(len(l.shapes) for l in self.lanes)
+                + len(self._shapes))
+
+    def _pack_lane(self, lane: _DeviceLane) -> Optional[_Wave]:
+        """The single-ring `_pack_wave`, parameterized by lane: the SAME
+        shared inner loop (`_plan_into_wave` — dedup against the SHARED
+        verdict cache) and bucket policy (`_select_bucket`), enforcing
+        THIS lane's compiled-bucket ladder after pin()."""
+        if not lane.staged:
+            return None
+        wave = _Wave()
+        wave.lane = lane.idx
+        wave.t_first = lane.first_staged
+        cap = self.config.PIPELINE_MAX_BUCKET
+        key_cap = cap
+        enforce = (self.pinned and lane.bucketed and not lane.degraded())
+        lane_buckets = self._lane_buckets(lane)
+        if enforce and lane_buckets:
+            cap = max(lane_buckets)
+            key_cap = self._lane_key_cap(lane)
+        wave_vks = self._plan_into_wave(lane.staged, wave, cap, key_cap)
+        lane.first_staged = self._now() if lane.staged else None
+        return self._finish_wave(
+            wave, len(wave_vks),
+            lane.bucketed and not lane.degraded(),
+            enforce, lane_buckets, lane.shapes, lane_stats=lane.stats)
+
+    def _dispatch_lane(self, lane: _DeviceLane, wave: _Wave) -> None:
+        self._dispatch_wave(wave, lane=lane)
+
+    def _lane_flush_due(self, lane: _DeviceLane) -> bool:
+        return self._ring_flush_due(lane.staged, lane.first_staged)
+
+    def _poll_lane(self, lane: _DeviceLane, wait: bool = False) -> bool:
+        if lane.inflight is None:
+            return False
+        got = lane.poll(wait=wait)
+        if got is None:
+            return False
+        self._resolve_wave(lane.inflight, got)
+        lane.inflight = None
+        return True
+
+    def service(self, force: bool = False) -> bool:
+        """The pump, N lanes wide: every lane polls its in-flight wave,
+        packs a due wave from ITS queue, and promotes packed -> in-flight
+        the moment the chip is free — N double-buffered streams."""
+        progressed = False
+        for lane in self.lanes:
+            progressed |= self._poll_lane(lane)
+            if lane.packed is None and (force or self._lane_flush_due(lane)):
+                packed = self._pack_lane(lane)
+                if packed is not None:
+                    if packed.n_real == 0:
+                        progressed = True     # fully cache-settled
+                    else:
+                        lane.packed = packed
+            if lane.inflight is None and lane.packed is not None:
+                self._dispatch_lane(lane, lane.packed)
+                lane.packed = None
+                progressed = True
+        if force:
+            progressed |= self._flush_bls()
+            progressed |= self._flush_sha()
+            progressed |= self._flush_cmt()
+        return progressed
+
+    def collect_verify(self, token: _EdToken,
+                       wait: bool = True) -> Optional[np.ndarray]:
+        while token.verdicts is None:
+            if self._try_settle_token(token):
+                break
+            if wait:
+                if self.service(force=True):
+                    # the pump progressed (possibly resolving THIS
+                    # token's waves): re-check readiness before blocking
+                    # anywhere — otherwise a sick chip's hedge deadline
+                    # head-of-line-blocks every healthy-lane collect
+                    continue
+                # no progress: block on a lane carrying one of THIS
+                # token's waves first; only fall back to any in-flight
+                # lane when the token is waiting on a still-queued wave
+                # behind it. Every poll terminates (threaded workers
+                # hedge via the supervised inner; inline lanes
+                # blocking-collect the same way).
+                target = None
+                for e in token.plan:
+                    if (e is not None and e[0] == "w"
+                            and e[1].verdicts is None
+                            and e[1].lane is not None
+                            and self.lanes[e[1].lane].inflight is e[1]):
+                        target = self.lanes[e[1].lane]
+                        break
+                if target is None:
+                    target = next((l for l in self.lanes
+                                   if l.inflight is not None), None)
+                if target is not None:
+                    self._poll_lane(target, wait=True)
+            else:
+                if not self.service():
+                    # non-blocking and nothing progressed: the caller
+                    # polls again later (threaded waves resolve on their
+                    # workers; inline waves on the next service)
+                    return None
+        return token.verdicts
+
+    # --- warmup / pinning across lanes ----------------------------------
+
+    def prewarm(self, buckets: Optional[Sequence[int]] = None) -> list[int]:
+        """Compile the pad buckets on EVERY lane — each chip owns its
+        executables. Threaded lanes warm CONCURRENTLY (N compiles cost
+        ~max, not sum; on jax-cpu one cold verify-kernel compile is
+        60-130 s, so sequential warmup of 8 lanes would be minutes).
+        A lane's shape is noted only AFTER its warm dispatch succeeds,
+        and a failed warm (bare lane, wedged chip) RAISES after the
+        join — silently reporting it warmed would let pin() enforce a
+        bucket that never compiled (the mid-run-retrace stall pin()
+        exists to prevent)."""
+        want = [b for b in sorted(set(
+            buckets if buckets is not None else self.buckets[:1]))
+            if b in set(self.buckets)]
+        warmed: list[int] = []
+        errors: list[tuple[int, Exception]] = []
+
+        def warm_lane(lane: _DeviceLane) -> None:
+            for b in want:
+                items = [(b"pipeline-prewarm", b"\x00" * 64,
+                          b"\x00" * 32)] * b
+                tok = lane.inner.submit_batch(items)
+                lane.inner.collect_batch(tok, wait=True)
+                self._note_lane_shape(lane, self._cache_bucket(1, b))
+
+        def warm_guarded(lane: _DeviceLane) -> None:
+            try:
+                warm_lane(lane)
+            except Exception as e:
+                errors.append((lane.idx, e))
+
+        threads = []
+        for lane in self.lanes:
+            if not lane.bucketed:
+                continue
+            if lane.threaded:
+                import threading
+                t = threading.Thread(target=warm_guarded, args=(lane,),
+                                     daemon=True)
+                t.start()
+                threads.append(t)
+            else:
+                warm_lane(lane)     # inline: propagate like the base
+            warmed = want
+        for t in threads:
+            t.join()
+        if errors:
+            raise RuntimeError(
+                "lane prewarm failed: "
+                + "; ".join(f"lane{i}: {e!r}" for i, e in errors))
+        return warmed
+
+    def pin(self) -> None:
+        self.pinned = True
+        ladders = [self._lane_buckets(l) for l in self.lanes if l.bucketed]
+        tops = [max(lad) for lad in ladders if lad]
+        if self.controller is not None and tops:
+            # the floor must be dispatchable on EVERY lane's ladder
+            self.controller._floor_max = min(self.controller._floor_max,
+                                             min(tops))
+
+    # --- reporting ------------------------------------------------------
+
+    def occupancy(self) -> int:
+        n = sum(lane.occupancy() for lane in self.lanes)
+        n += sum(len(t.items) for t in self._bls_staged)
+        n += sum(len(t.items) for t in self._sha_staged)
+        n += sum(len(t.items) for t in self._cmt_staged)
+        return n
+
+    def device_state(self) -> list[dict]:
+        """Per-chip gauges: the telemetry state section + fleet console
+        read these to show WHICH chip is sick."""
+        out = []
+        for lane in self.lanes:
+            d = lane.stats["dispatches"]
+            dev = getattr(lane.inner, "device", None)
+            out.append({
+                "lane": lane.idx,
+                **({"device": str(dev)} if dev is not None else {}),
+                "breaker": lane.breaker_state() or "none",
+                "occupancy": lane.occupancy(),
+                "dispatches": d,
+                "dispatched_items": lane.stats["dispatched_items"],
+                "bucket_hit_rate": round(lane.stats["bucket_hits"] / d, 3)
+                if d else None,
+            })
+        return out
+
+    def sample_metrics(self, metrics) -> None:
+        super().sample_metrics(metrics)
+        states = [lane.breaker_state() for lane in self.lanes]
+        metrics.add_event(MetricsName.PIPELINE_DEVICE_LANES,
+                          len(self.lanes))
+        metrics.add_event(
+            MetricsName.PIPELINE_DEVICE_BREAKERS_OPEN,
+            sum(1 for s in states if s not in (None, "closed")))
+        occs = [lane.occupancy() for lane in self.lanes]
+        metrics.add_event(MetricsName.PIPELINE_DEVICE_OCCUPANCY_MAX,
+                          max(occs) if occs else 0)
+        disp = [lane.stats["dispatches"] for lane in self.lanes]
+        if disp and sum(disp):
+            mean = sum(disp) / len(disp)
+            metrics.add_event(MetricsName.PIPELINE_DEVICE_DISPATCH_SPREAD,
+                              max(disp) / mean if mean else 0.0)
+
+    def summary(self) -> dict:
+        out = super().summary()
+        out["devices"] = self.device_state()
+        out["lanes"] = len(self.lanes)
+        return out
+
+
+def lane_inners(n_devices: Optional[int], supervised: bool = True,
+                devices: Optional[Sequence] = None) -> list:
+    """One TorchEd25519Verifier per lane of `lane_roster(n_devices,
+    devices)` (default: this host's CUDA devices, wrapped when n_devices
+    asks for more lanes than there are), each in ITS OWN plane supervisor
+    when `supervised`. The card's kernels build once, here, before any
+    lane exists; a roster with no device raises (no silent CPU lane)."""
+    from plenum_tpu_torch import ops
+    from plenum_tpu_torch.crypto.ed25519 import warm_up
+
+    from .mesh import lane_roster
+    from .supervisor import supervise
+    devs = lane_roster(n_devices if n_devices and n_devices > 0 else None,
+                       devices)
+    if not devs:
+        ops.resolve_device("cuda")        # raises: no CUDA device
+        raise RuntimeError("no local devices for the multi-device pipeline")
+    on_card = any(d.type == "cuda" for d in devs)
+    if on_card:
+        ops.resolve_device("cuda")
+        for name in ops.build():
+            ops.lib(name)
+    inners = []
+    for i, dev in enumerate(devs):
+        v = TorchEd25519Verifier(device=dev)
+        if dev.type == "cuda":
+            # one verify beneath the supervisor: a lane's first dispatch
+            # on a fresh context would read as a dead device
+            warm_up(v)
+        if supervised:
+            v = supervise(v, label=f"lane{i}")
+        inners.append(v)
+    return inners
+
+
+def make_multidevice_pipeline(config, n_devices: int,
+                              min_batch: int = 1,
+                              supervised: bool = True,
+                              devices: Optional[Sequence] = None,
+                              **kw) -> "MultiDeviceCryptoPipeline":
+    """N independent chip lanes over this host's local devices: one
+    device-pinned TorchEd25519Verifier per lane, each wrapped in ITS OWN
+    plane supervisor (independent breaker/deadline state — the whole
+    point: chip k wedging opens lane k, not the ring). `devices` names
+    the lanes' devices (["cpu"] * N for the plain versions); the default
+    is the card's. `min_batch` is the reference's signature: the torch
+    verifier takes no minimum (the ring's buckets pad)."""
+    inners = lane_inners(n_devices, supervised, devices)
+    return MultiDeviceCryptoPipeline(
+        ed_inners=inners, config=config,
+        sha_device=kw.pop("sha_device", True),
+        sha_min_device=kw.pop("sha_min_device", getattr(
+            config, "PIPELINE_SHA_MIN_BATCH", 1024)), **kw)
+
+
 class PipelineVerifier(Ed25519Verifier):
     """`Ed25519Verifier` face of the pipeline ring: client-auth batches
     (node/client_authn.py) stage into the shared ring instead of
@@ -1406,9 +1950,12 @@ def make_crypto_pipeline(config, backend: str,
     "cuda" both kernel sources build here, at once.
 
     `n_devices` (default: config.PIPELINE_DEVICES) selects the scale-out
-    shape: only 1, the single ring, is ported; the per-chip lanes
-    (n_devices != 1) and the cross-host federation
-    (PIPELINE_REMOTE_HOSTS) raise NotImplementedError (ROADMAP A7)."""
+    shape: 1 -> the single ring EXACTLY (no lane indirection on the hot
+    path); >1 -> per-chip lanes with independent breakers; 0 -> every
+    local device. "cuda" lanes lie on this host's CUDA devices (wrapped:
+    four lanes on one H100 share it), "torch" lanes on the CPU.
+    PIPELINE_REMOTE_HOSTS adds the rostered crypto hosts as lanes
+    (parallel/federation.py)."""
     if not getattr(config, "CRYPTO_PIPELINE", True):
         return None
     if backend not in _DEVICE_BACKENDS and ed_inner is None:
@@ -1418,14 +1965,22 @@ def make_crypto_pipeline(config, backend: str,
     hosts = [h.strip() for h in
              str(getattr(config, "PIPELINE_REMOTE_HOSTS", "") or "")
              .split(",") if h.strip()]
+    lanes_on = None if backend == "cuda" else ["cpu"]
+    sup = supervised is not False
     if ed_inner is None and backend in ("cuda", "torch") and hosts:
-        raise NotImplementedError(
-            "the cross-host crypto federation (PIPELINE_REMOTE_HOSTS) is "
-            "not ported yet (ROADMAP A7)")
+        # cross-host federation: rostered remote crypto hosts join the
+        # ring as extra lanes. Gated STRICTLY on the roster knob — unset
+        # keeps every path below byte-identical
+        from .federation import make_federated_pipeline
+        return make_federated_pipeline(config, min_batch=min_batch,
+                                       supervised=sup,
+                                       n_devices=n_devices,
+                                       devices=lanes_on)
     if ed_inner is None and backend in ("cuda", "torch") and n_devices != 1:
-        raise NotImplementedError(
-            f"the multi-device ring (n_devices={n_devices}) is not ported "
-            f"yet (ROADMAP A7): use n_devices=1")
+        return make_multidevice_pipeline(config, n_devices,
+                                         min_batch=min_batch,
+                                         supervised=sup,
+                                         devices=lanes_on)
     if ed_inner is None:
         from plenum_tpu_torch.crypto.ed25519 import make_verifier
         if backend == "cuda":

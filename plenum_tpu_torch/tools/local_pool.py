@@ -142,8 +142,11 @@ def build_pool(n_nodes: int, backend: str, seed: int = 1,
         if config.CRYPTO_PIPELINE:
             from plenum_tpu_torch.parallel.pipeline import \
                 make_crypto_pipeline
-            # the single-device ring (the scale-out shapes raise, A7); it
-            # owns the shape policy: its pinned bucket ladder covers the
+            # the factory takes the reference's three arms: the federated
+            # ring when PIPELINE_REMOTE_HOSTS rosters crypto hosts, one
+            # breakable lane per device when PIPELINE_DEVICES != 1 (on
+            # "torch" CPU lanes), else the single-device ring; it owns
+            # the shape policy: its pinned bucket ladder covers the
             # coalesced steady state
             pipeline = make_crypto_pipeline(
                 config.replace(PIPELINE_MAX_BUCKET=max(
@@ -213,10 +216,14 @@ def commit_stage_stats(metrics) -> dict:
 
 def run_load(n_nodes: int = 4, n_txns: int = 200, backend: str = "cuda",
              timeout: float = 120.0, trace: bool = False,
-             config_overrides: dict = None, window: int = 256) -> dict:
+             config_overrides: dict = None, window: int = 256,
+             on_pin=None) -> dict:
     """window: max requests in flight while feeding. 256 floods the
     pipeline (the headline shape); small windows trickle config7-style
-    per-tick batches (the pipeline A/B's coalescing measurement)."""
+    per-tick batches (the pipeline A/B's coalescing measurement).
+    on_pin: called with the pool's ring once it is warmed and pinned,
+    just before the timed phase (the port's hook for reading the ring's
+    counters over that phase)."""
     from plenum_tpu_torch.common.request import Request
     from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
     from plenum_tpu_torch.execution.txn import NYM
@@ -270,6 +277,8 @@ def run_load(n_nodes: int = 4, n_txns: int = 200, backend: str = "cuda",
         # ladder covers steady state (bigger levels split at the cap)
         pipe.prewarm_cmt([1, 2, 4, 8])
         pipe.pin()
+        if on_pin is not None:
+            on_pin(pipe)
 
     n_txns = len(requests)
     t_start = time.perf_counter()

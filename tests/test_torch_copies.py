@@ -68,10 +68,14 @@ COPIES = [
     "storage/__init__.py", "storage/kv_chunked.py", "storage/kv_file.py",
     "storage/kv_memory.py", "storage/kv_native.py", "storage/kv_store.py",
     "storage/state_ts_store.py",
-    "tools/__init__.py", "tools/genesis.py", "tools/keygen.py",
-    "tools/log_analyzer.py", "tools/metrics_report.py",
-    "tools/proof_vectors.py", "tools/replay.py", "tools/start_node.py",
-    "tools/start_observer.py", "tools/tcp_pool.py", "tools/trace_report.py",
+    "tools/__init__.py", "tools/churn_soak.py", "tools/fleet_console.py",
+    "tools/fuzz_lint.py", "tools/genesis.py", "tools/keygen.py",
+    "tools/log_analyzer.py", "tools/metrics_lint.py",
+    "tools/metrics_report.py", "tools/micro_costs.py",
+    "tools/perf_budget.py", "tools/perf_sentinel.py",
+    "tools/proof_vectors.py", "tools/replay.py", "tools/soak.py",
+    "tools/start_node.py", "tools/start_observer.py", "tools/tcp_pool.py",
+    "tools/trace_report.py",
     "utils/__init__.py", "utils/base58.py",
 ]
 
@@ -92,6 +96,12 @@ def _port_tree(rel: str, src: str = None) -> list[str]:
 
 def _ref_tree(rel: str) -> list[str]:
     return _tree(_source("plenum_tpu", rel))
+
+
+def _port_lines(rel: str, first: int, last: int) -> str:
+    """Lines first..last (1-based) of the port's file."""
+    return "".join(
+        _source("plenum_tpu_torch", rel).splitlines(True)[first - 1:last])
 
 
 def _ref_lines(rel: str, first: int, last: int) -> str:
@@ -223,6 +233,47 @@ UNDONE = {
         ("    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier\n",
          ""),
         ("CryptoPipeline(CpuEd25519Verifier())", "CryptoPipeline()")],
+    # the docstring's history notes name no change number (lines 5, 18)
+    "tools/perf_sentinel.py": [
+        (_port_lines("tools/perf_sentinel.py", 5, 5),
+         _ref_lines("tools/perf_sentinel.py", 5, 5)),
+        (_port_lines("tools/perf_sentinel.py", 18, 18),
+         _ref_lines("tools/perf_sentinel.py", 18, 18))],
+    # the pool's crypto backend is a parameter, the card unless asked for
+    # the CPU (the reference's soak runs a "cpu" pool)
+    "tools/soak.py": [
+        (" \\\n        [--backend cuda|cpu|torch]\n", "\n"),
+        ("n_nodes: int = 4, backend: str = \"cuda\") -> dict:",
+         "n_nodes: int = 4) -> dict:"),
+        ("build_pool(n_nodes, backend)", "build_pool(n_nodes, \"cpu\")"),
+        ('    ap.add_argument("--backend", default="cuda",\n'
+         '                    choices=["cpu", "cuda", "torch"])\n', ""),
+        ("run_soak(args.seconds, args.wave,\n"
+         "                              backend=args.backend)",
+         "run_soak(args.seconds, args.wave)")],
+    # the lint reads the port's suite
+    "tools/fuzz_lint.py": [
+        ("tests/test_torch_sim_fuzz.py by AST", "tests/test_sim_fuzz.py by AST"),
+        ('"tests", "test_torch_sim_fuzz.py")', '"tests", "test_sim_fuzz.py")')],
+    # the soak's pool takes the port's test helpers and a crypto backend,
+    # the card unless asked for the CPU (the reference's Config says cpu)
+    "tools/churn_soak.py": [
+        (" [--backend cpu] [--json]", " [--json]"),
+        ("(tests/test_torch_resilience.py)", "(tests/test_resilience.py)"),
+        (",\n                   crypto_backend: str = \"cuda\") -> dict:",
+         ") -> dict:"),
+        (" `crypto_backend` is the nodes'\n    (the card unless asked for "
+         "\"cpu\" or \"torch\").", ""),
+        ("from test_torch_pool import Pool, signed_nym            # noqa",
+         "from test_pool import Pool, signed_nym                  # noqa"),
+        ("from test_torch_scale import signed_node_services       # noqa",
+         "from test_scale import signed_node_services             # noqa"),
+        ("Config(Max3PCBatchWait=0.05, crypto_backend=crypto_backend,",
+         "Config(Max3PCBatchWait=0.05,"),
+        ('    ap.add_argument("--backend", default="cuda",\n'
+         '                    choices=["cpu", "cuda", "torch"])\n', ""),
+        ("leak_rate=args.leak_rate,\n                         "
+         "crypto_backend=args.backend)", "leak_rate=args.leak_rate)")],
 }
 
 
@@ -328,10 +379,18 @@ def test_local_pool_holds_the_reference_genesis_builders():
         "run_load", "main"]
     for name in ("pool_bls_keys", "build_genesis", "commit_stage_stats"):
         assert ast.dump(defs[name]) == ast.dump(ref_defs[name]), name
-    # run_load: the default backend and the percall arm's name
-    src = ast.unparse(defs["run_load"]).replace(
+    # run_load: the default backend, the percall arm's name, and the
+    # on_pin hook (called with the ring after its pin())
+    run_load = defs["run_load"]
+    assert [a.arg for a in run_load.args.args][-1] == "on_pin"
+    run_load.args.args.pop()
+    run_load.args.defaults.pop()
+    src = ast.unparse(run_load).replace(
         "backend: str='cuda'", "backend: str='cpu'").replace(
-        "'cuda-percall'", "'jax-percall'")
+        "'cuda-percall'", "'jax-percall'").replace(
+        "\n        if on_pin is not None:\n            on_pin(pipe)", "")
+    doc = src.index("measurement).") + len("measurement).")
+    src = src[:doc] + src[src.index('"""', doc):]
     assert src == ast.unparse(ref_defs["run_load"])
     main_src = ast.unparse(defs["main"]).replace(
         "default='cuda', choices=['cpu', 'cuda', 'cuda-percall', 'torch']",
@@ -340,3 +399,49 @@ def test_local_pool_holds_the_reference_genesis_builders():
     assert [ast.dump(n) for n in port[1:]
             if not isinstance(n, ast.FunctionDef)] == \
         [ast.dump(n) for n in ref[1:] if not isinstance(n, ast.FunctionDef)]
+
+
+def _defs(pkg: str, rel: str, src: str = None) -> dict:
+    src = _source(pkg, rel) if src is None else src
+    return {n.name: ast.dump(n) for n in ast.parse(
+        src.replace("plenum_tpu_torch", "plenum_tpu")).body
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+def test_federation_differs_only_in_its_lanes_devices():
+    """parallel/federation.py is the reference's but for
+    make_federated_pipeline, whose local lanes are pipeline.lane_inners'
+    torch verifiers on `devices` (the reference's are jax verifiers), and
+    its docstring's opening, which names no change number."""
+    rel = "parallel/federation.py"
+    src = _source("plenum_tpu_torch", rel).replace(
+        _port_lines(rel, 4, 4), _ref_lines(rel, 4, 4))
+    port, ref = _defs("plenum_tpu_torch", rel, src), _defs("plenum_tpu", rel)
+    assert list(port) == list(ref)
+    for name in port:
+        if name != "make_federated_pipeline":
+            assert port[name] == ref[name], name
+    assert [ast.dump(n) for n in ast.parse(src.replace(
+        "plenum_tpu_torch", "plenum_tpu")).body
+        if not isinstance(n, (ast.FunctionDef, ast.ClassDef))] == \
+        [ast.dump(n) for n in ast.parse(_source("plenum_tpu", rel)).body
+         if not isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+
+
+def test_multidevice_ring_and_crypto_host_roster_are_the_references():
+    """MultiDeviceCryptoPipeline is the reference's class statement for
+    statement (its docstring's first line names no change number; the
+    lane rule lives in _DeviceLane, ROADMAP C), and
+    multihost.crypto_host_roster is the reference's function."""
+    rel = "parallel/pipeline.py"
+
+    def first_line(pkg):
+        return next(line for line in _source(pkg, rel).splitlines(True)
+                    if "submission ring sharded across N chips" in line)
+    port = _source("plenum_tpu_torch", rel).replace(
+        first_line("plenum_tpu_torch"), first_line("plenum_tpu"))
+    assert _defs("plenum_tpu_torch", rel, port)["MultiDeviceCryptoPipeline"] \
+        == _defs("plenum_tpu", rel)["MultiDeviceCryptoPipeline"]
+    assert _defs("plenum_tpu_torch", "parallel/multihost.py")[
+        "crypto_host_roster"] == _defs("plenum_tpu", "parallel/multihost.py")[
+        "crypto_host_roster"]

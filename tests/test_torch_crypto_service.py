@@ -8,8 +8,10 @@ topology it exists for: a 4-process TCP pool on `service:cpu`, and on
 signatures on the kernels' plain versions. make_verifier("service") is
 supervised unless asked otherwise, make_tree_hasher("service") hashes
 on hashlib, and NodeBootstrap(crypto_backend="service") builds in both
-packages to the same roots. The three federated cases of the reference
-file wait for the port's federation (ROADMAP A7)."""
+packages to the same roots. The three federated cases run the wave
+frames, the prewarm/pin negotiation and a FederatedCryptoPipeline with
+one real remote lane over the socket; the factory builds that ring from
+PIPELINE_REMOTE_HOSTS."""
 from __future__ import annotations
 
 import asyncio
@@ -673,3 +675,137 @@ def test_service_main_warms_its_verifier_before_binding(monkeypatch, tmp_path):
         crypto_service.main(["--backend", "cpu",
                              "--socket", str(tmp_path / "s.sock")])
     assert order == ["warm", "bind"]
+
+
+# --- federated wave frames + prewarm/pin negotiation -------------------------
+
+def test_federated_wave_frames_dispatch_verbatim(service):
+    """`"wave": 1` frames bypass the server's dedup/coalescing: a padded
+    bucket of IDENTICAL items dispatches at full width (the federated
+    lane's pinned-shape guarantee crosses the wire), while verdicts stay
+    correct and still land in the shared digest cache."""
+    from plenum_tpu_torch.parallel.crypto_service import FederatedEd25519Client
+    server, connect = service
+    fed = FederatedEd25519Client(socket_path=connect().socket_path)
+    pad = _make_items(1, tag=b"pad")[0]
+    before = server.stats["dispatched_items"]
+    out = fed.collect_batch(fed.submit_batch([pad] * 16), wait=True)
+    assert out.shape == (16,) and out.all()
+    assert server.stats["dispatched_items"] - before == 16, \
+        "server deduped a wave frame — the dispatched shape shrank"
+    assert server.stats.get("wave_frames", 0) >= 1
+    # mixed real verdicts round-trip the raw path too
+    items = _make_items(6, tag=b"wavemix")
+    items[2] = (items[2][0], items[2][1][:32] + bytes(32), items[2][2])
+    got = fed.collect_batch(fed.submit_batch(items), wait=True)
+    assert list(got) == [True, True, False, True, True, True]
+    fed.close()
+
+
+def test_federated_prewarm_pin_negotiation(service):
+    """The prewarm RPC compiles each pad bucket server-side (one
+    verbatim all-pad wave per bucket) and answers whether the remote
+    inner is device-backed; pin marks warmup over."""
+    from plenum_tpu_torch.parallel.crypto_service import FederatedEd25519Client
+    server, connect = service
+    fed = FederatedEd25519Client(socket_path=connect().socket_path)
+    reply = fed.prewarm([8, 16])
+    assert reply["warmed"] == [8, 16]
+    assert reply["bucketed"] is False       # CPU inner: don't pad for it
+    assert server.stats.get("prewarms") == 1
+    assert fed.pin()["pinned"] is True
+    assert server.stats.get("pinned") == 1
+    fed.close()
+
+
+def test_federated_pipeline_rides_remote_lane(service):
+    """End-to-end: a FederatedCryptoPipeline with one REAL remote lane
+    over the service socket — prewarm negotiation turns padding off for
+    the CPU-backed host, unhinted waves land on the remote, verdicts
+    are correct, and no item is double-verified."""
+    from plenum_tpu_torch.config import Config
+    from plenum_tpu_torch.crypto.ed25519 import TorchEd25519Verifier
+    from plenum_tpu_torch.parallel.crypto_service import FederatedEd25519Client
+    from plenum_tpu_torch.parallel.federation import FederatedCryptoPipeline
+    from plenum_tpu_torch.parallel.supervisor import supervise
+    server, connect = service
+    sock = connect().socket_path
+    class FakeDev(TorchEd25519Verifier):
+        def __init__(self):
+            super().__init__(device="cpu")
+
+        def submit_batch(self, items):
+            return np.ones(len(items), dtype=bool)
+
+        def collect_batch(self, token, wait=True):
+            return token
+
+    fed = supervise(FederatedEd25519Client(socket_path=sock),
+                    label="remote0")
+    pipe = FederatedCryptoPipeline(
+        ed_inners=[FakeDev()],
+        remote_inners=[fed], hosts=[sock],
+        config=Config(PIPELINE_MIN_BUCKET=16, PIPELINE_MAX_BUCKET=64,
+                      PIPELINE_FLUSH_WAIT=0.0),
+        threaded=False)
+    pipe.prewarm([16])
+    assert pipe.lanes[1].bucketed is False  # negotiated: CPU host
+    pipe.pin()
+    n = 0
+    toks = []
+    for i in range(8):
+        items = _make_items(4, tag=b"fed%d-" % i)
+        toks.append(pipe.submit_verify(items))
+        n += 4
+    for t in toks:
+        out = pipe.collect_verify(t, wait=True)
+        assert out is not None and out.all()
+    assert pipe.lanes[1].stats["dispatches"] >= 1, \
+        "the remote lane never carried a wave"
+    assert pipe.stats["dispatched_items"] == n
+    assert pipe.stats["unpinned_shapes"] == 0
+    assert pipe.federation_state()["remote_lanes"] == 1
+    assert pipe.federation_state()["ship_ms_p95"] > 0.0
+    pipe.close()
+
+
+def test_factory_with_a_roster_builds_the_federated_ring(service):
+    """PIPELINE_REMOTE_HOSTS set -> make_crypto_pipeline takes the
+    federation branch: one local lane (a CPU lane for "torch") plus one
+    supervised remote lane over the service socket; without the roster
+    the same call is the single ring exactly. One real signature and one
+    forged one settle through the remote lane."""
+    from plenum_tpu_torch.config import Config
+    from plenum_tpu_torch.parallel.federation import FederatedCryptoPipeline
+    from plenum_tpu_torch.parallel.pipeline import (CryptoPipeline,
+                                                    make_crypto_pipeline)
+    from plenum_tpu_torch.parallel.supervisor import find_supervisor
+    server, connect = service
+    sock = connect().socket_path
+    cfg = dict(PIPELINE_MIN_BUCKET=8, PIPELINE_MAX_BUCKET=16,
+               PIPELINE_FLUSH_WAIT=0.0)
+    assert type(make_crypto_pipeline(Config(**cfg), "torch")) is \
+        CryptoPipeline
+    pipe = make_crypto_pipeline(Config(PIPELINE_REMOTE_HOSTS=sock, **cfg),
+                                "torch")
+    assert type(pipe) is FederatedCryptoPipeline
+    assert pipe.n_local == 1 and len(pipe.lanes) == 2
+    assert str(pipe.lanes[0].inner._device.device) == "cpu"
+    assert all(find_supervisor(l.inner) is not None for l in pipe.lanes)
+    assert not pipe.lanes[0].threaded and pipe.lanes[1].threaded
+    pipe.prewarm([8])
+    assert pipe.lanes[1].bucketed is False   # negotiated: a CPU host
+    pipe.pin()
+    items = _make_items(2, tag=b"factory")
+    items[1] = (items[1][0], items[1][1][:32] + bytes(32), items[1][2])
+    tok = pipe.submit_verify(items, lane=None)
+    for lane in pipe.lanes[:1]:
+        if tok in lane.staged:
+            lane.staged.remove(tok)
+            lane.first_staged = None
+    pipe.lanes[1].staged.append(tok)
+    pipe.lanes[1].first_staged = 0.0
+    assert list(pipe.collect_verify(tok, wait=True)) == [True, False]
+    assert pipe.lanes[1].stats["dispatches"] == 1
+    assert pipe.federation_state()["remote_lanes"] == 1
+    pipe.close()

@@ -75,7 +75,18 @@ def test_every_module_imports_with_jax_and_reference_blocked():
             "plenum_tpu_torch.tools.metrics_report",
             "plenum_tpu_torch.tools.log_analyzer",
             "plenum_tpu_torch.tools.replay",
-            "plenum_tpu_torch.tools.start_observer"} <= set(mods)
+            "plenum_tpu_torch.tools.start_observer",
+            "plenum_tpu_torch.tools.perf_sentinel",
+            "plenum_tpu_torch.tools.metrics_lint",
+            "plenum_tpu_torch.tools.fleet_console",
+            "plenum_tpu_torch.tools.fuzz_lint",
+            "plenum_tpu_torch.tools.churn_soak",
+            "plenum_tpu_torch.tools.soak",
+            "plenum_tpu_torch.tools.micro_costs",
+            "plenum_tpu_torch.tools.perf_budget",
+            "plenum_tpu_torch.parallel.federation",
+            "plenum_tpu_torch.parallel.multihost",
+            "plenum_tpu_torch.parallel.pipeline"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _BLOCKER, *mods], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)

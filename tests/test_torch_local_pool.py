@@ -1,8 +1,10 @@
 """The port's pool runner (plenum_tpu_torch/tools/local_pool.py) on the
 CPU: run_load's 4-node pool on the `cpu` backend and on the `torch` ring
 (the kernels' plain versions behind every client signature, small
-buckets) orders every txn with the ledgers agreeing; the arms the port
-has not ported raise; `cpu` runs agree with the reference's runner."""
+buckets) orders every txn with the ledgers agreeing; build_pool takes
+the reference's scale-out arms (the multi-device ring on CPU lanes, the
+federated ring failing fast on an unreachable crypto host); `cpu` runs
+agree with the reference's runner."""
 import json
 
 import pytest
@@ -125,9 +127,20 @@ def test_build_pool_starts_every_node_from_copied_rows():
 
 @pytest.mark.parametrize("overrides", [dict(PIPELINE_DEVICES=2),
                                        dict(PIPELINE_REMOTE_HOSTS="h:1")])
-def test_unported_scale_out_arms_raise(overrides):
-    with pytest.raises(NotImplementedError, match="A7"):
-        local_pool.build_pool(4, "torch", config_overrides=overrides)
+def test_build_pool_takes_the_scale_out_arms(overrides):
+    """PIPELINE_DEVICES != 1: the multi-device ring, CPU lanes on "torch";
+    a crypto-host roster: the federated ring, which fails fast on a host
+    it cannot reach (an operator error, never a silent single-host ring),
+    as the reference's does."""
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
+    if "PIPELINE_REMOTE_HOSTS" in overrides:
+        with pytest.raises((OSError, RuntimeError)):
+            local_pool.build_pool(4, "torch", config_overrides=overrides)
+        return
+    plane = local_pool.build_pool(4, "torch", config_overrides=overrides)[7]
+    assert type(plane._pipeline) is MultiDeviceCryptoPipeline
+    assert [str(d) for d in (l.inner._device.device
+                             for l in plane._pipeline.lanes)] == ["cpu"] * 2
 
 
 def test_run_load_defaults_to_the_card():

@@ -1,13 +1,15 @@
-"""The port's single-device crypto ring (plenum_tpu_torch/parallel/
-pipeline.py), held to the reference's single-device cases
-(tests/test_pipeline.py; the multi-device and federated ones wait for
-ROADMAP A7): recompile guard, fused Merkle equivalence, ring dedup,
-double buffering, controller steering, supervisor composition, the
-disabled-overhead bound and the cmt pin ladder. Then the same seeded
-script through both packages' rings, the ring's default BLS and KZG
-engines against the reference's, the rings the port refuses until
-their modules are ported, and the card chain's errors, which the port
-lets out of the ring."""
+"""The port's crypto rings (plenum_tpu_torch/parallel/pipeline.py and
+federation.py), held to the reference's cases (tests/test_pipeline.py):
+recompile guard, fused Merkle equivalence, ring dedup, double
+buffering, controller steering, supervisor composition, the
+disabled-overhead bound, the multi-device lanes (placement, per-lane
+pin ladders, breaker isolation, threaded dispatch), the cmt pin ladder
+and the federation (work-stealing, pinned placement, hysteresis,
+evacuation, pump-driven rejoin, the zero-remote class). Then the same
+seeded script through both packages' rings, the ring's default BLS and
+KZG engines against the reference's, the factories' shapes on the
+port's backend names, and the card chain's errors, which the port lets
+out of the ring and out of a lane."""
 import hashlib
 import random
 import time
@@ -455,9 +457,11 @@ def test_single_device_path_is_the_single_ring_exactly():
     seam returns the CryptoPipeline CLASS itself (no lane indirection on
     the hot path), and per-op submit/collect cost stays within noise of
     a directly-built ring."""
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
     p1 = make_crypto_pipeline(Config(PIPELINE_DEVICES=1), "torch")
     assert type(p1) is CryptoPipeline, \
-        "single-device pool got another class"
+        "single-device pool got the multi-device class"
+    assert not isinstance(p1, MultiDeviceCryptoPipeline)
     # default config IS the single-device config
     assert Config().PIPELINE_DEVICES == 1
 
@@ -484,6 +488,147 @@ def test_single_device_path_is_the_single_ring_exactly():
     assert per_seam < per_base * 3 + 1e-3, \
         f"single-device seam {per_seam * 1e6:.0f}us/op vs the ring's " \
         f"{per_base * 1e6:.0f}us/op"
+
+
+# --- multi-device lanes ------------------------------------------------------
+
+def _multi_pipe(n_lanes=4, **over):
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
+    inners = [FakeDeviceVerifier() for _ in range(n_lanes)]
+    pipe = MultiDeviceCryptoPipeline(ed_inners=inners,
+                                     config=_fast_config(**over),
+                                     threaded=False)
+    return pipe, inners
+
+
+def test_multidevice_placement_and_dispatch_spread():
+    """Co-hosted shard tags pin to distinct chips (tag % lanes); the
+    unhinted path spreads waves over every healthy lane; per-lane
+    dispatch counts and device_state tell the story."""
+    rng = random.Random(53)
+    pipe, inners = _multi_pipe(4)
+    assert [pipe.place(t) for t in range(6)] == [0, 1, 2, 3, 0, 1]
+    # hinted: lane 2 gets the wave, nobody else
+    tok = pipe.submit_verify(_junk_items(rng, 8), lane=2)
+    out = pipe.collect_verify(tok, wait=True)
+    assert out is not None and len(out) == 8
+    assert pipe.lanes[2].stats["dispatches"] == 1
+    assert all(pipe.lanes[k].stats["dispatches"] == 0 for k in (0, 1, 3))
+    # unhinted: waves spread across all lanes
+    toks = [pipe.submit_verify(_junk_items(rng, 8)) for _ in range(8)]
+    for t in toks:
+        assert pipe.collect_verify(t, wait=True) is not None
+    spread = [l.stats["dispatches"] for l in pipe.lanes]
+    assert all(d >= 1 for d in spread), spread
+    state = pipe.device_state()
+    assert [d["lane"] for d in state] == [0, 1, 2, 3]
+    assert sum(d["dispatches"] for d in state) == sum(spread)
+    assert pipe.summary()["lanes"] == 4
+
+
+def test_multidevice_per_lane_prewarm_pin_enforcement():
+    """prewarm compiles each chip's OWN ladder; after pin() every lane
+    enforces ITS compiled shapes (pad up / split), so steady state never
+    recompiles on ANY chip — the per-lane twin of the single ring's guard."""
+    rng = random.Random(59)
+    pipe, inners = _multi_pipe(3)
+    assert pipe.prewarm([16, 32]) == [16, 32]
+    for inner in inners:
+        assert set(inner.shapes) == {16, 32}
+    warm = pipe.compiled_shapes
+    pipe.pin()
+    for _ in range(60):
+        tok = pipe.submit_verify(_junk_items(rng, rng.randint(1, 60)),
+                                 lane=rng.randint(0, 5))
+        assert pipe.collect_verify(tok, wait=True) is not None
+    assert pipe.compiled_shapes == warm, \
+        "steady state met a novel dispatch shape on some lane"
+    assert pipe.stats["unpinned_shapes"] == 0
+    for inner in inners:
+        assert set(inner.shapes) <= {16, 32}
+
+
+def test_multidevice_one_lane_breaker_isolation():
+    """A wedged chip opens THAT lane's breaker only: its pinned waves
+    degrade to host fallback, the other lanes keep dispatching to their
+    devices, and unhinted traffic routes around the sick chip."""
+    from plenum_tpu_torch.parallel.faults import FaultyVerifier
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
+    from plenum_tpu_torch.parallel.supervisor import (CLOSED, CircuitBreaker,
+                                                DeadlineBudget,
+                                                SupervisedVerifier)
+    faulties, sups = [], []
+    for k in range(3):
+        f = FaultyVerifier(CpuEd25519Verifier(), device_index=k)
+        s = SupervisedVerifier(
+            f, fallback=CpuEd25519Verifier(),
+            breaker=CircuitBreaker(fail_threshold=1, cooldown=60.0),
+            budget=DeadlineBudget(base=0.2, min_s=0.1, warm_max=0.3,
+                                  cold_max=0.3),
+            label=f"lane{k}")
+        faulties.append(f)
+        sups.append(s)
+    pipe = MultiDeviceCryptoPipeline(ed_inners=sups,
+                                     config=_fast_config(),
+                                     threaded=False)
+    signer = Ed25519Signer(seed=b"lane-iso".ljust(32, b"\0"))
+    mk = lambda tag, n=3: [
+        (b"%s-%d" % (tag, i), signer.sign(b"%s-%d" % (tag, i)),
+         signer.verkey) for i in range(n)]
+    faulties[1].wedge()
+    got = pipe.collect_verify(pipe.submit_verify(mk(b"w"), lane=1),
+                              wait=True)
+    assert list(got) == [True] * 3          # host fallback, correct
+    assert sups[1].breaker.state != CLOSED
+    assert sups[0].breaker.state == CLOSED
+    assert sups[2].breaker.state == CLOSED
+    # unhinted traffic avoids the open lane entirely
+    for i in range(4):
+        pipe.collect_verify(pipe.submit_verify(mk(b"u%d" % i)), wait=True)
+    assert pipe.lanes[1].stats["dispatches"] == 1   # only its pinned wave
+    assert (pipe.lanes[0].stats["dispatches"]
+            + pipe.lanes[2].stats["dispatches"]) >= 4
+    # telemetry story: device_state names the sick chip
+    state = {d["lane"]: d["breaker"] for d in pipe.device_state()}
+    assert state[1] == "open" and state[0] == "closed"
+
+
+def test_multidevice_threaded_lanes_concurrent_dispatch():
+    """Threaded lanes (the device-pinned production shape) resolve waves
+    from worker threads: N in-flight waves make progress without the
+    pump blocking on any one of them."""
+    import threading
+
+    class SlowDev(FakeDeviceVerifier):
+        def __init__(self):
+            super().__init__()
+            self.gate = threading.Event()
+
+        def submit_batch(self, items):
+            self.shapes.append(len(items))
+            return np.ones(len(items), dtype=bool)
+
+        def collect_batch(self, token, wait=True):
+            self.gate.wait(timeout=5.0)
+            return token
+
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
+    rng = random.Random(61)
+    inners = [SlowDev() for _ in range(3)]
+    pipe = MultiDeviceCryptoPipeline(ed_inners=inners,
+                                     config=_fast_config(),
+                                     threaded=True)
+    toks = [pipe.submit_verify(_junk_items(rng, 8), lane=k)
+            for k in range(3)]
+    pipe.service(force=True)
+    assert all(l.inflight is not None for l in pipe.lanes), \
+        "three waves must fly CONCURRENTLY, one per lane"
+    for inner in inners:
+        inner.gate.set()
+    for t in toks:
+        out = pipe.collect_verify(t, wait=True)
+        assert out is not None and len(out) == 8
+    pipe.close()
 
 
 # --- commit-wave (cmt) lane pin ladder ---------------------------------------
@@ -823,20 +968,6 @@ def test_cmt_kzg_jobs_default_engine_match_reference(job):
     assert pipe.stats["cmt_host_fallbacks"] == 1
 
 
-def test_multi_device_and_federated_rings_raise_naming_a7():
-    for cfg in (Config(PIPELINE_DEVICES=2), Config(PIPELINE_DEVICES=0),
-                Config(PIPELINE_REMOTE_HOSTS="/run/crypto0.sock")):
-        with pytest.raises(NotImplementedError, match="A7"):
-            make_crypto_pipeline(cfg, "torch")
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_crypto_pipeline(Config(), "torch", n_devices=4)
-    # a sharded inner, or an injected one, stays a single ring
-    assert type(make_crypto_pipeline(Config(PIPELINE_DEVICES=2),
-                                     "torch-sharded")) is CryptoPipeline
-    assert make_crypto_pipeline(Config(PIPELINE_DEVICES=2), "torch",
-                                ed_inner=FakeDeviceVerifier()) is not None
-
-
 def test_ring_takes_no_default_inner_and_hashes_on_its_device():
     """No default Ed25519 inner (a ring never lands on the CPU unasked),
     and the SHA lane hashes on the inner's device unless told not to."""
@@ -875,3 +1006,347 @@ def test_raising_inner_on_the_card_propagates(wait):
     card = CryptoPipeline(on_card, config=_fast_config())
     with pytest.raises(RuntimeError, match="launch failed"):
         settle(card, card.submit_verify(items))
+
+
+# --- cross-host federation (parallel/federation.py) --------------------------
+
+def _fed_pipe(n_local=2, n_remote=1, **over):
+    from plenum_tpu_torch.parallel.federation import FederatedCryptoPipeline
+    locals_ = [FakeDeviceVerifier() for _ in range(n_local)]
+    remotes = [FakeDeviceVerifier() for _ in range(n_remote)]
+    pipe = FederatedCryptoPipeline(
+        ed_inners=locals_, remote_inners=remotes,
+        hosts=[f"fake{j}.sock" for j in range(n_remote)],
+        config=_fast_config(**over), threaded=False)
+    return pipe, locals_, remotes
+
+
+def test_federated_stolen_items_never_double_verified():
+    """Work-stealing moves whole, fully-unplanned tokens, so each
+    distinct item reaches exactly ONE device exactly once even while
+    waves migrate between backlogged lanes: dispatched_items (which
+    counts unique reals, not pads) equals the distinct items submitted."""
+    rng = random.Random(71)
+    pipe, locals_, remotes = _fed_pipe(
+        2, 1, PIPELINE_STEAL_THRESHOLD=4, PIPELINE_STEAL_COOLDOWN=0.0)
+    n_items = 0
+    toks = []
+    for i in range(30):
+        t = pipe.submit_verify(_junk_items(rng, 5), lane=0)
+        t.lane_hint = None          # eligible: only the PIN blocks a steal
+        toks.append(t)
+        n_items += 5
+    pipe._balance()
+    assert pipe.stats["steals"] >= 1, "backlog never migrated"
+    for t in toks:
+        out = pipe.collect_verify(t, wait=True)
+        assert out is not None and len(out) == 5
+    assert pipe.stats["dispatched_items"] == n_items, \
+        "a stolen item was dispatched more (or less) than once"
+    assert pipe.stats["stolen_items"] >= 1
+    # the remote lane really absorbed work
+    assert pipe.lanes[2].stats["dispatched_items"] >= 1
+
+
+def test_federated_pinned_placement_honored():
+    """place() maps pinned shard tags onto LOCAL chips only, and a
+    pinned token never migrates off its chip — a backlogged pinned lane
+    keeps its own queue (its fallback chain is its own supervisor)."""
+    rng = random.Random(73)
+    pipe, _, _ = _fed_pipe(2, 2, PIPELINE_STEAL_THRESHOLD=1,
+                           PIPELINE_STEAL_COOLDOWN=0.0)
+    assert [pipe.place(t) for t in range(5)] == [0, 1, 0, 1, 0]
+    toks = [pipe.submit_verify(_junk_items(rng, 2), lane=0)
+            for _ in range(40)]
+    pre = pipe._lane_backlog(pipe.lanes[0])
+    pipe._balance()
+    assert pipe.stats["steals"] == 0, "a pinned token migrated"
+    assert pipe._lane_backlog(pipe.lanes[0]) == pre
+    for t in toks:
+        assert pipe.collect_verify(t, wait=True) is not None
+    assert pipe.lanes[0].stats["dispatched_items"] == 80
+    assert all(l.stats["dispatched_items"] == 0 for l in pipe.lanes[1:])
+
+
+def test_federated_steal_hysteresis_never_oscillates():
+    """Symmetric load on two lanes: neither clears the occupancy-delta
+    threshold, so zero steals — and after a genuine steal the per-pair
+    cooldown blocks the immediate reverse flow (anti-flap)."""
+    rng = random.Random(79)
+    pipe, _, _ = _fed_pipe(2, 0, PIPELINE_STEAL_THRESHOLD=8,
+                           PIPELINE_STEAL_COOLDOWN=60.0)
+    for i in range(20):                     # 20 items each, symmetric
+        for lane in (0, 1):
+            t = pipe.submit_verify(_junk_items(rng, 1), lane=lane)
+            t.lane_hint = None
+    for _ in range(50):
+        pipe._balance()
+    assert pipe.stats["steals"] == 0, "symmetric load oscillated"
+    # now a real imbalance: one steal fires, the echo is suppressed
+    for i in range(30):
+        t = pipe.submit_verify(_junk_items(rng, 1), lane=0)
+        t.lane_hint = None
+    pipe._balance()
+    assert pipe.stats["steals"] == 1
+    # tilt the load the OTHER way: the delta now clears the threshold in
+    # reverse, but the per-pair cooldown must hold the echo (anti-flap)
+    for i in range(30):
+        t = pipe.submit_verify(_junk_items(rng, 1), lane=1)
+        t.lane_hint = None
+    for _ in range(50):
+        pipe._balance()
+    assert pipe.stats["steals"] == 1, "steal echoed back within cooldown"
+
+
+def test_federated_breaker_evacuates_to_local_lanes():
+    """An open remote breaker evacuates that lane's queue back to
+    HOST-LOCAL lanes unconditionally (no threshold, no cooldown) — the
+    crypto_host_down steal-back contract."""
+    import types
+    rng = random.Random(83)
+    pipe, locals_, remotes = _fed_pipe(2, 1, PIPELINE_STEAL_THRESHOLD=10 ** 6,
+                                       PIPELINE_STEAL_COOLDOWN=60.0)
+    # queue unhinted work onto the remote lane directly
+    for i in range(10):
+        t = pipe.submit_verify(_junk_items(rng, 2))
+        t.lane_hint = None
+    # drain whatever landed locally so only the remote queue remains
+    remote = pipe.lanes[2]
+    for lane in pipe.lanes[:2]:
+        lane.staged.clear()
+        lane.first_staged = None
+    if not remote.staged:                   # ensure the remote has work
+        t = pipe.submit_verify(_junk_items(rng, 2))
+        t.lane_hint = None
+        remote.staged.append(t)
+    remotes[0].breaker = types.SimpleNamespace(state="open")
+    pre = pipe._lane_backlog(remote)
+    assert pre > 0
+    pipe._balance()
+    assert pipe._lane_backlog(remote) == 0, "open lane kept its queue"
+    assert sum(pipe._lane_backlog(l) for l in pipe.lanes[:2]) == pre
+    assert pipe.stats["steals"] >= 1
+
+
+def test_federated_idle_dead_host_rejoins_via_pump():
+    """Placement routes AROUND an open lane and evacuation empties its
+    queue, so a dead host's supervisor sees no traffic at all — nothing
+    on the submit/collect path would ever run its probe. The ring pump
+    must drive recovery itself (service() -> supervisor.pump_recovery):
+    after the host heals, pumping ALONE re-closes the breaker (re-warm
+    included) and fresh waves reach the host again."""
+    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
+    from plenum_tpu_torch.parallel.federation import FederatedCryptoPipeline
+    from plenum_tpu_torch.parallel.supervisor import (CLOSED, CircuitBreaker,
+                                                SupervisedVerifier)
+
+    class DyingHost(CpuEd25519Verifier):
+        def __init__(self):
+            super().__init__()
+            self.dead = False
+            self.rewarms = 0
+
+        def rewarm(self):
+            if self.dead:
+                raise ConnectionError("host down")
+            self.rewarms += 1
+
+        def submit_batch(self, items):
+            if self.dead:
+                raise ConnectionError("host down")
+            return super().submit_batch(items)
+
+    clock = [0.0]
+    host = DyingHost()
+    sup = SupervisedVerifier(
+        host, fallback=CpuEd25519Verifier(),
+        breaker=CircuitBreaker(fail_threshold=1, cooldown=1.0,
+                               now=lambda: clock[0]),
+        now=lambda: clock[0], label="remote0")
+    pipe = FederatedCryptoPipeline(
+        ed_inners=[FakeDeviceVerifier() for _ in range(2)],
+        remote_inners=[sup], hosts=["fake0.sock"],
+        config=_fast_config(PIPELINE_STEAL_THRESHOLD=10 ** 6,
+                            PIPELINE_STEAL_COOLDOWN=60.0),
+        threaded=False)
+    remote = pipe.lanes[2]
+    rng = random.Random(97)
+
+    def through_remote(n):
+        t = pipe.submit_verify(_junk_items(rng, n))
+        t.lane_hint = None
+        for lane in pipe.lanes:
+            if t in lane.staged:
+                lane.staged.remove(t)
+                if not lane.staged:
+                    lane.first_staged = None
+        remote.staged.append(t)
+        if remote.first_staged is None:
+            remote.first_staged = clock[0]
+        return t
+
+    # the host dies with one wave headed its way: the supervisor falls
+    # back (the wave still settles) and the breaker opens
+    host.dead = True
+    tok = through_remote(2)
+    pipe.service(force=True)
+    assert pipe.collect_verify(tok, wait=True) is not None
+    assert sup.breaker.state != CLOSED
+    assert remote.degraded()
+
+    # heal, then pump service() with ZERO traffic anywhere: recovery
+    # must come from the pump, not from batches the lane never gets
+    host.dead = False
+    clock[0] += 2.0                       # past the cooldown
+    for _ in range(4):
+        pipe.service()
+    assert sup.breaker.state == CLOSED, \
+        "idle open lane never probed: pump_recovery not driven"
+    assert host.rewarms >= 1, "re-admission skipped the re-warm"
+    assert not remote.degraded()
+
+    # rejoin is real: a fresh wave through the lane hits the device path
+    dev_before = sup.stats["device_batches"]
+    tok = through_remote(2)
+    pipe.service(force=True)
+    assert pipe.collect_verify(tok, wait=True) is not None
+    assert sup.stats["device_batches"] > dev_before
+
+
+def test_federated_zero_remote_constructs_the_multidevice_class_exactly(
+        tmp_path):
+    """PIPELINE_REMOTE_HOSTS unset -> the construction seam returns the
+    single and multi-device classes THEMSELVES (no federation subclass
+    anywhere on the hot path), and the federated subclass's pump
+    overhead with zero remotes stays within noise of the multi-device
+    ring (microbench pin)."""
+    from plenum_tpu_torch.parallel.federation import FederatedCryptoPipeline
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
+    assert Config().PIPELINE_REMOTE_HOSTS == ""
+    p1 = make_crypto_pipeline(Config(PIPELINE_DEVICES=1), "torch")
+    assert type(p1) is CryptoPipeline
+    p2 = make_crypto_pipeline(Config(PIPELINE_DEVICES=2), "torch")
+    assert type(p2) is MultiDeviceCryptoPipeline
+    assert not isinstance(p2, FederatedCryptoPipeline)
+    p2.close()
+    # hosts set -> the factory takes the federation branch, which fails
+    # FAST on an unreachable roster entry (operator error, not a silent
+    # single-host fallback)
+    with pytest.raises((OSError, RuntimeError)):
+        make_crypto_pipeline(
+            Config(PIPELINE_DEVICES=1,
+                   PIPELINE_REMOTE_HOSTS=str(tmp_path / "nonexistent.sock")),
+            "torch")
+
+    def drive(pipe, n_ops=60):
+        rng = random.Random(89)
+        t0 = time.perf_counter()
+        for _ in range(n_ops):
+            tok = pipe.submit_verify(_junk_items(rng, 8))
+            pipe.collect_verify(tok, wait=True)
+        return (time.perf_counter() - t0) / n_ops
+
+    base, _ = _multi_pipe(2)
+    fed, _, _ = _fed_pipe(2, 0)
+    drive(base, 10)
+    drive(fed, 10)
+    per_base = drive(base)
+    per_fed = drive(fed)
+    assert per_fed < per_base * 3 + 1e-3, \
+        f"zero-remote federation {per_fed * 1e6:.0f}us/op vs the lanes' " \
+        f"{per_base * 1e6:.0f}us/op"
+
+
+def test_factories_build_each_scale_out_shape():
+    """make_crypto_pipeline's shapes on the port's names: n_devices=4 on
+    "torch" is a MultiDeviceCryptoPipeline of four supervised, inline CPU
+    lanes (each its own breaker); 0 is every local device, the one CPU
+    lane; a sharded or an injected inner stays a single ring; the card's
+    lanes raise here, where there is no card, instead of landing on the
+    CPU."""
+    from plenum_tpu_torch.parallel.pipeline import (MultiDeviceCryptoPipeline,
+                                                    make_multidevice_pipeline)
+    from plenum_tpu_torch.parallel.supervisor import find_supervisor
+    pipe = make_crypto_pipeline(_fast_config(), "torch", n_devices=4)
+    assert type(pipe) is MultiDeviceCryptoPipeline
+    assert len(pipe.lanes) == 4
+    sups = [find_supervisor(l.inner) for l in pipe.lanes]
+    assert all(s is not None for s in sups) and len(set(map(id, sups))) == 4
+    assert all(s._device.device == torch.device("cpu") for s in sups)
+    assert not any(l.threaded for l in pipe.lanes)
+    assert pipe._sha_device and pipe._sha_dev == torch.device("cpu")
+    assert len(make_crypto_pipeline(Config(PIPELINE_DEVICES=0),
+                                    "torch").lanes) == 1
+    bare = make_crypto_pipeline(_fast_config(), "torch", n_devices=2,
+                                supervised=False)
+    assert all(find_supervisor(l.inner) is None for l in bare.lanes)
+    # a sharded inner, or an injected one, stays a single ring
+    assert type(make_crypto_pipeline(Config(PIPELINE_DEVICES=2),
+                                     "torch-sharded")) is CryptoPipeline
+    assert type(make_crypto_pipeline(Config(PIPELINE_DEVICES=2), "torch",
+                                     ed_inner=FakeDeviceVerifier())) \
+        is CryptoPipeline
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_crypto_pipeline(_fast_config(), "cuda", n_devices=4)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_multidevice_pipeline(_fast_config(), 4)
+    # verdicts through the four lanes are the CPU verifier's
+    signer = Ed25519Signer(seed=b"four-lanes".ljust(32, b"\0"))
+    items = [(b"m%d" % i, signer.sign(b"m%d" % i), signer.verkey)
+             for i in range(6)]
+    items[3] = (b"forged", items[3][1], items[3][2])
+    toks = [pipe.submit_verify(items[k:k + 2]) for k in range(0, 6, 2)]
+    got = np.concatenate([pipe.collect_verify(t, wait=True) for t in toks])
+    assert got.tolist() == CpuEd25519Verifier().verify_batch(items).tolist()
+    assert sum(l.stats["dispatches"] for l in pipe.lanes) >= 1
+
+
+@pytest.mark.parametrize("threaded", [False, True])
+def test_lane_on_the_card_lets_a_bare_inners_error_out(threaded):
+    """A bare lane whose chain ends on the card raises the inner's error
+    out of the ring, inline or from its worker thread, as the single
+    ring does; a host lane re-verifies on the CPU. (No card here: the
+    fake only names a CUDA device.)"""
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
+    items = _junk_items(random.Random(5), 4)
+    host = MultiDeviceCryptoPipeline([RaisingDeviceVerifier()],
+                                     config=_fast_config(), threaded=threaded)
+    assert host.collect_verify(host.submit_verify(items)).tolist() == \
+        [False] * 4
+    host.close()
+    on_card = RaisingDeviceVerifier()
+    on_card.device = torch.device("cuda")
+    card = MultiDeviceCryptoPipeline([on_card], config=_fast_config(),
+                                     threaded=threaded)
+    assert card.lanes[0].on_card
+    with pytest.raises(RuntimeError, match="launch failed"):
+        card.collect_verify(card.submit_verify(items))
+    card.close()
+    # auto: a lane threads iff its device is CUDA
+    assert MultiDeviceCryptoPipeline(
+        [on_card], config=_fast_config()).lanes[0].threaded
+    assert not MultiDeviceCryptoPipeline(
+        [FakeDeviceVerifier()], config=_fast_config()).lanes[0].threaded
+
+
+def test_ring_counts_repeats_of_items_in_unresolved_waves():
+    """The ring dedups against its verdict cache and within the wave it
+    packs, not against waves in flight (ROADMAP C): an item packed while
+    another lane's wave that holds it has not resolved is dispatched
+    again, and counted in inflight_repeats; once resolved, it is a
+    cache hit."""
+    pipe = make_crypto_pipeline(_fast_config(), "torch", n_devices=2)
+    signer = Ed25519Signer(seed=b"repeats".ljust(32, b"\0"))
+    item = (b"m", signer.sign(b"m"), signer.verkey)
+    d0 = pipe.stats["dispatched_items"]
+    toks = [pipe.submit_verify([item], lane=k) for k in (0, 1)]
+    pipe.service(force=True)
+    assert [pipe.collect_verify(t, wait=True).tolist() for t in toks] == \
+        [[True], [True]]
+    assert pipe.stats["dispatched_items"] - d0 == 2
+    assert pipe.inflight_repeats == 1
+    tok = pipe.submit_verify([item])
+    assert pipe.collect_verify(tok, wait=True).tolist() == [True]
+    assert pipe.stats["dispatched_items"] - d0 == 2
+    assert pipe.inflight_repeats == 1 and not pipe._unresolved

@@ -135,6 +135,33 @@ def test_plane_on_cpu_shards_matches_reference(n_shards, dispatch):
         assert sha.digests_to_bytes(root[None]) == [_hash_root(digests)]
 
 
+def test_mesh_cuts_a_process_block_by_spec():
+    """Mesh.shard on one process's lanes of a (2, 4) mesh: rank 1 of two
+    drives lanes 4..7, the second "inst" row, and gets its row block cut
+    into one block per lane, as the reference's PartitionSpec places
+    it; a run of lanes that is no block of the grid raises, and so does
+    a verifier over a mesh in a process group."""
+    mesh = make_mesh(8, ["cpu"] * 8)
+    mesh.local = slice(4, 8)
+    assert mesh.local_grid() == (1, 4)
+    grid = torch.arange(4 * 3).reshape(1, 4, 3)       # this rank's row
+    assert [b.tolist() for b in mesh.shard(grid, ("inst", "sig", None))] \
+        == [grid[:, k:k + 1].tolist() for k in range(4)]
+    leaves = torch.arange(8 * 2).reshape(8, 2)
+    assert [b.tolist() for b in mesh.shard(leaves, (("inst", "sig"), None))] \
+        == [leaves[2 * k:2 * k + 2].tolist() for k in range(4)]
+    assert all(torch.equal(b, grid) for b in mesh.shard(grid, None))
+    mesh.local = slice(2, 4)
+    assert mesh.local_grid() == (1, 2)
+    mesh.local = slice(2, 5)
+    with pytest.raises(ValueError):
+        mesh.local_grid()
+    # a verifier dispatches one process's traffic: not over a group
+    mesh.local, mesh.in_group = slice(0, 8), True
+    with pytest.raises(ValueError, match="every rank"):
+        ShardedTorchEd25519Verifier(ShardedCryptoPlane(mesh))
+
+
 def test_plane_rejects_grids_that_do_not_tile():
     plane = ShardedCryptoPlane(make_mesh(6, ["cpu"] * 6))
     (s, h, k, idx, r), _ = _grid("bytes")

@@ -8,6 +8,8 @@ This is SURVEY.md §7's "minimum end-to-end slice" — the equivalent of the
 reference's sdk_send_random_and_check over txnPoolNodeSet
 (plenum/test/conftest.py:695, helper.py:1034).
 """
+import contextlib
+
 import pytest
 
 from plenum_tpu_torch.common.node_messages import (DOMAIN_LEDGER_ID, POOL_LEDGER_ID,
@@ -65,6 +67,14 @@ def make_genesis(names, validator_names=None):
                                 "role": TRUSTEE})
     txn_lib.set_seq_no(nym, 1)
     return {POOL_LEDGER_ID: pool_txns, DOMAIN_LEDGER_ID: [nym]}, trustee
+
+
+def CpuConfig(**kw):
+    """The port's Config with the nodes' crypto on the CPU: its
+    crypto_backend default is the card (the reference's is "cpu"), so the
+    ported tests that build their own Config import this as Config."""
+    kw.setdefault("crypto_backend", "cpu")
+    return Config(**kw)
 
 
 class Pool:
@@ -499,3 +509,62 @@ def test_client_copy_parks_on_inflight_propagate_dispatch():
     sizes = {pool.nodes[n].c.db.get_ledger(DOMAIN_LEDGER_ID).size
              for n in pool.names}
     assert sizes == {2}
+
+
+def pool_outcomes(fn, pool_cls, tmp_path=None) -> list:
+    """Run the test function `fn` (with `tmp_path` where it takes one) and
+    return every `pool_cls` pool it built, as each live node's domain
+    ledger size and root and committed state root: the outcome a ported
+    case holds to the reference's, whose Pool is another class."""
+    import inspect
+    made = []
+    real_init = pool_cls.__init__
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        made.append(self)
+    pool_cls.__init__ = init
+    try:
+        args = ([tmp_path] if "tmp_path" in inspect.signature(fn).parameters
+                else [])
+        fn(*args)
+    finally:
+        pool_cls.__init__ = real_init
+    out = []
+    for pool in made:
+        out.append({n: (node.c.db.get_ledger(DOMAIN_LEDGER_ID).size,
+                        node.c.db.get_ledger(DOMAIN_LEDGER_ID).root_hash,
+                        node.c.db.get_state(DOMAIN_LEDGER_ID)
+                        .committed_head_hash)
+                    for n, node in sorted(pool.nodes.items())})
+    return out
+
+
+@contextlib.contextmanager
+def fresh_bls_caches():
+    """Both packages' process-wide BLS verdict caches empty on entry and
+    on exit: a run of a reference case (or a second run of a case) beside
+    its own file's sees and leaves the caches a fresh process has, so no
+    case's checks are answered by another run's verdicts."""
+    from plenum_tpu.crypto import bls as ref_bls
+    from plenum_tpu_torch.crypto import bls
+    caches = (bls._BLS_VERDICTS, ref_bls._BLS_VERDICTS)
+    for cache in caches:
+        cache.clear()
+    try:
+        yield
+    finally:
+        for cache in caches:
+            cache.clear()
+
+
+def held_to_reference(port_fn, ref_fn, tmp_path) -> None:
+    """A ported pool case and its reference case, each run once: every
+    pool they build ends with the same ledgers and state on every node."""
+    import test_pool as ref
+    with fresh_bls_caches():
+        ours = pool_outcomes(port_fn, Pool, tmp_path / "port"
+                             if tmp_path is not None else None)
+        theirs = pool_outcomes(ref_fn, ref.Pool, tmp_path / "ref"
+                               if tmp_path is not None else None)
+    assert ours and ours == theirs

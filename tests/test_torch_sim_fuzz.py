@@ -1,13 +1,19 @@
-"""The port's copy of the device-flap rungs of tests/test_sim_fuzz.py,
-run on plenum_tpu_torch (the multidevice rung waits for the multi-device
-ring, ROADMAP A7).
+"""The port's copy of tests/test_sim_fuzz.py, run on plenum_tpu_torch
+with every node's crypto on the CPU: the base view-change scenario, the
+device-flap rungs (per node, through the shared ring, per lane of the
+multi-device ring, on the commit-wave lane), the crypto-host-down rung of
+the federated ring, the lying reader (MPT and Verkle), the client flood,
+the lying edge and membership churn. The cross-shard, reshard,
+directory-rotation and autopilot rungs wait for shards/ and control/
+(ROADMAP A8). tools/fuzz_lint.py reads this file.
 
-Seeded randomized fault scenarios over the deterministic SimNetwork: the
-crypto device wedges, drops or corrupts mid-consensus (per node, through
-the shared ring, or on the ring's commit-wave lane) and the pool must
-keep ordering on the CPU fallback, re-admit the device after the heal,
-and never fork (SAFETY: no two nodes commit different txns at the same
-seq_no).
+Seeded randomized view-change fuzzing over the deterministic SimNetwork.
+
+Reference test model: plenum/test/consensus/view_change/test_sim_view_change.py
++ test/simulation/sim_network.py:98 — many seeds, random latencies, drops and
+primary failures injected mid-protocol; every run must preserve SAFETY (no
+two nodes commit different txns at the same seq_no) and, once the fault
+heals, LIVENESS (pending requests get ordered under some primary).
 
 Every scenario is a pure function of its seed: SimNetwork randomness, fault
 choice, fault timing and traffic all derive from SimRandom(seed), so any
@@ -18,10 +24,12 @@ from __future__ import annotations
 import pytest
 
 from plenum_tpu_torch.common.node_messages import DOMAIN_LEDGER_ID
+from plenum_tpu_torch.common.request import Request
 from plenum_tpu_torch.config import Config
 from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
 from plenum_tpu_torch.execution import txn as txn_lib
-from plenum_tpu_torch.network import SimRandom
+from plenum_tpu_torch.network import Discard, Deliver, SimRandom, match_dst, match_frm
+from plenum_tpu_torch.network.sim_network import match_type
 
 from test_torch_pool import Pool, signed_nym
 
@@ -32,6 +40,8 @@ FAST = dict(Max3PCBatchWait=0.05,
             STATE_FRESHNESS_UPDATE_INTERVAL=3.0,
             VIEW_CHANGE_TIMEOUT=8.0,
             NEW_VIEW_TIMEOUT=4.0)
+
+N_SEEDS = 100
 
 # --- flight-recorder failure artifacts --------------------------------------
 # Every scenario tracks its pool here; a failing rung dumps ALL nodes'
@@ -103,6 +113,210 @@ def assert_safety(pool) -> None:
             common = min(len(chains[a]), len(chains[b]))
             assert chains[a][:common] == chains[b][:common], \
                 f"FORK between {a} and {b}: {chains[a]} vs {chains[b]}"
+
+
+def run_scenario(seed: int) -> None:
+    rng = SimRandom(seed * 7919 + 17)
+    # draw the scenario FIRST: scenario 3 needs a durable pool (crash-
+    # recovery with stable storage), the rest an in-memory one — building
+    # both would double every seed's setup cost
+    scenario = rng.integer(0, 5)
+    durable = None
+    if scenario == 3:
+        import tempfile
+        durable = tempfile.mkdtemp(prefix="plenum_fuzz_s3_")
+        pool = _track(Pool(seed=seed,
+                           config=Config(**FAST, kv_backend="native"),
+                           data_dir=durable))
+    else:
+        pool = _track(Pool(seed=seed, config=Config(**FAST)))
+    primary = pool.nodes["Alpha"].master_replica.data.primary_name
+
+    users = [Ed25519Signer(seed=(b"fuzz%d-%d" % (seed, i)).ljust(32, b"\0")[:32])
+             for i in range(3)]
+    reqs = [signed_nym(pool.trustee, u, i + 1) for i, u in enumerate(users)]
+
+    if scenario == 0:
+        # primary blackout at a random moment while traffic flows
+        pool.submit(reqs[0])
+        pool.run(rng.float(0.0, 1.5))
+        rules = [pool.net.add_rule(Discard(), match_dst(primary)),
+                 pool.net.add_rule(Discard(), match_frm(primary))]
+        pool.submit(reqs[1], to=[n for n in pool.names if n != primary])
+        pool.run(25.0)
+        survivors = [n for n in pool.names if n != primary]
+        for n in survivors:
+            assert pool.nodes[n].master_replica.view_no >= 1, \
+                f"seed {seed}: {n} stuck in view 0"
+            assert len(_domain_txns(pool.nodes[n])) >= 3, \
+                f"seed {seed}: {n} lost requests across the view change"
+    elif scenario == 1:
+        # lossy network: drop a random slice of consensus traffic for a
+        # while, then heal; MessageReq/catchup must recover — a view change
+        # may or may not happen, both are legal
+        p_drop = rng.float(0.1, 0.4)
+        victim = pool.names[rng.integer(0, 3)]
+        rule = pool.net.add_rule(Discard(probability=p_drop),
+                                 match_dst(victim))
+        pool.submit(reqs[0])
+        pool.run(rng.float(2.0, 5.0))
+        pool.net.remove_rule(rule)
+        pool.submit(reqs[1])
+        pool.run(20.0)
+        sizes = {len(_domain_txns(pool.nodes[n])) for n in pool.names
+                 if n != victim}
+        assert sizes == {3}, f"seed {seed}: healed pool did not order: {sizes}"
+    elif scenario == 2:
+        # slow new-primary: the view change itself runs under heavy random
+        # delay on the next primary's traffic (concurrent VC pressure — the
+        # first VC can time out and escalate to view+2; any view >= 1 with
+        # all traffic ordered is a pass)
+        next_primary = pool.nodes["Alpha"].replicas.master.data.validators[1]
+        pool.net.add_rule(Deliver(rng.float(0.5, 1.0), rng.float(1.5, 4.0)),
+                          match_frm(next_primary))
+        rules = [pool.net.add_rule(Discard(), match_dst(primary)),
+                 pool.net.add_rule(Discard(), match_frm(primary))]
+        pool.submit(reqs[0], to=[n for n in pool.names if n != primary])
+        pool.run(40.0)
+        survivors = [n for n in pool.names if n != primary]
+        views = {pool.nodes[n].master_replica.view_no for n in survivors}
+        assert all(v >= 1 for v in views), f"seed {seed}: views {views}"
+        for n in survivors:
+            assert len(_domain_txns(pool.nodes[n])) >= 2, \
+                f"seed {seed}: {n} did not order after delayed VC"
+    elif scenario == 3:
+        # quorum loss then heal: TWO nodes crash at a random moment (the
+        # survivors drop below weak-quorum connectivity -> the
+        # NetworkInconsistencyWatcher fires and marks a resync); the
+        # crashed pair returns FROM ITS DURABLE STATE (crash-recovery
+        # with stable storage — restarting 2 of 4 from genesis would be
+        # amnesia x2 > f, outside the BFT fault model, and genuinely
+        # forks the audit ledger), catches up, and the survivors must
+        # ALSO resync — then everyone orders new traffic.
+        import shutil
+        pool.submit(reqs[0])
+        pool.run(rng.float(1.0, 4.0))
+        dead = [n for n in pool.names if n != primary][:2] \
+            if rng.integer(0, 2) else [primary,
+                                       [n for n in pool.names
+                                        if n != primary][0]]
+        for n in dead:
+            pool.crash_node(n)
+        pool.run(rng.float(0.5, 2.0))
+        for n in pool.names:
+            if n not in dead:
+                assert pool.nodes[n]._needs_resync, \
+                    f"seed {seed}: {n} never noticed losing quorum"
+        for n in dead:
+            pool.start_node(n)
+        pool.net.connect_all()
+        for n in dead:
+            pool.nodes[n].start_catchup()
+        pool.run(20.0)
+        pool.submit(reqs[1])
+        pool.run(20.0)
+        try:
+            sizes = {len(_domain_txns(node))
+                     for node in pool.nodes.values()}
+            assert sizes == {3}, f"seed {seed}: healed pool diverged: {sizes}"
+            for n in pool.names:
+                if n not in dead:
+                    assert not pool.nodes[n]._needs_resync, \
+                        f"seed {seed}: {n} still marked inconsistent"
+        finally:
+            shutil.rmtree(durable, ignore_errors=True)
+            import gc
+            gc.collect()    # crash_node leaks handles by design (real
+            #                 crashes do); a multi-thousand-seed sweep in
+            #                 one interpreter needs them reaped promptly
+    elif scenario == 4:
+        # BYZANTINE LIES: one non-primary node's outbound 3PC messages are
+        # randomly mutated in flight (type-preserving field corruption —
+        # digests, seq/view numbers, roots — exactly what a malicious
+        # peer's process could emit). f=1 tolerates one liar: SAFETY must
+        # hold unconditionally and the pool must keep ordering.
+        from plenum_tpu_torch.common.node_messages import (Commit, PrePrepare,
+                                                     Prepare)
+        from plenum_tpu_torch.network import Mutate
+        import dataclasses
+        liar = [n for n in pool.names if n != primary][rng.integer(0, 2)]
+
+        def corrupt(msg, rng=rng):
+            kind = rng.integer(0, 3)
+            try:
+                if kind == 0 and hasattr(msg, "digest") and msg.digest:
+                    return dataclasses.replace(
+                        msg, digest="f" * len(msg.digest))
+                if kind == 1 and hasattr(msg, "pp_seq_no"):
+                    return dataclasses.replace(
+                        msg, pp_seq_no=msg.pp_seq_no + rng.integer(1, 3))
+                if kind == 2 and hasattr(msg, "state_root") and \
+                        getattr(msg, "state_root", ""):
+                    return dataclasses.replace(msg, state_root="0" * 64)
+                if hasattr(msg, "view_no"):
+                    return dataclasses.replace(
+                        msg, view_no=msg.view_no + rng.integer(1, 2))
+            except Exception:
+                return None     # unmutable shape: drop it (also byzantine)
+            return msg
+
+        pool.net.add_rule(Mutate(corrupt, probability=rng.float(0.3, 0.9)),
+                          match_frm(liar),
+                          match_type((PrePrepare, Prepare, Commit)))
+        pool.submit(reqs[0])
+        pool.run(10.0)
+        pool.submit(reqs[1])
+        pool.run(20.0)
+        honest = [n for n in pool.names if n != liar]
+        sizes = {len(_domain_txns(pool.nodes[n])) for n in honest}
+        assert sizes == {3}, \
+            f"seed {seed}: honest nodes failed to order under lies: {sizes}"
+    else:
+        # lagging node crawls through the whole view change (multi-second
+        # random delays both ways — it cannot block the VC quorum, only
+        # trail it), then heals and must converge into the new view.
+        # NOTE a third cut-off node would break the n-f=3 quorum at n=4;
+        # lag, not partition, is the strongest fault that keeps VC live.
+        # lag must stay under NEW_VIEW_TIMEOUT: with only 3 live votes at
+        # n=4, a laggard slower than the VC timers means NO view can ever
+        # stabilize (cascading view changes) — correct BFT behavior, but
+        # then there is no liveness to assert until the network heals
+        laggard = [n for n in pool.names if n != primary][rng.integer(0, 2)]
+        lag_rules = [
+            pool.net.add_rule(Deliver(1.0, rng.float(1.5, 3.0)),
+                              match_dst(laggard)),
+            pool.net.add_rule(Deliver(1.0, rng.float(1.5, 3.0)),
+                              match_frm(laggard))]
+        pool.net.add_rule(Discard(), match_dst(primary))
+        pool.net.add_rule(Discard(), match_frm(primary))
+        active = [n for n in pool.names if n not in (primary, laggard)]
+        pool.submit(reqs[0], to=active)
+        pool.run(30.0)
+        for rule in lag_rules:
+            pool.net.remove_rule(rule)
+        pool.run(15.0)
+        node = pool.nodes[laggard]
+        if node.master_replica.view_no == 0 or \
+                len(_domain_txns(node)) < 2:
+            node.start_catchup()          # trailing node syncs explicitly
+            pool.run(15.0)
+        assert node.master_replica.view_no >= 1, \
+            f"seed {seed}: laggard never adopted the new view"
+        assert len(_domain_txns(node)) >= 2, \
+            f"seed {seed}: laggard did not catch up the VC-era txns"
+    assert_safety(pool)
+
+
+# --- scenario kind `device_flap`: the crypto plane is the fault -------------
+# A seed-driven relay wedge/drop/corrupt hits the pool's SHARED device
+# verifier mid-consensus. The plane supervisor must degrade every node to
+# hedged CPU verdicts (no request stalls past its per-batch deadline
+# budget — measured from the supervisor's stall accounting, not asserted
+# by sleeping), keep ordering throughout, and after the seeded heal the
+# breaker must re-warm + re-admit the device with ordering latency back
+# at the pre-fault level. Runs as its OWN seed sweep rather than widening
+# run_scenario's rng.integer(0, 5) draw, which would silently remap every
+# historical seed of the six existing kinds.
 
 
 def _order_and_time(pool, req, expect_size: float, timeout: float = 25.0):
@@ -287,6 +501,317 @@ def run_device_flap_with_pipeline(seed: int) -> None:
     assert_safety(pool)
 
 
+def run_device_flap_multidevice(seed: int) -> None:
+    """device_flap with a PER-DEVICE fault target: the pool's crypto
+    pipeline is sharded into 4 chip lanes (one supervised verifier +
+    breaker each), and the seed-derived FaultPlan names ONE device index
+    — every lane carries the same plan, but only the lane whose
+    `device_index` matches reads the fault windows. Mid-consensus the
+    targeted chip wedges; EXACTLY that lane's breaker may open (no
+    ring-wide breaker), every other lane's dispatch count keeps
+    advancing, aggregate ordering continues, and after the window ends
+    the lane re-warms and rejoins (fresh pinned waves hit its device
+    again)."""
+    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
+    from plenum_tpu_torch.parallel.faults import FaultPlan, FaultyVerifier
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
+    from plenum_tpu_torch.parallel.supervisor import (CLOSED, CircuitBreaker,
+                                                DeadlineBudget,
+                                                SupervisedVerifier)
+    rng = SimRandom(seed * 48271 + 11)
+    n_lanes = 4
+    # ONE plan, device-targeted by the seed; a fixed window keeps the
+    # scenario's phases (healthy / faulted / healed) deterministic while
+    # the targeted chip and fault mode stay seed-driven
+    kind = ("wedge", "drop", "corrupt")[rng.integer(0, 2)]
+    plan = FaultPlan.from_seed(seed, n_devices=n_lanes, n_faults=0)
+    target = plan.device
+    assert target is not None and 0 <= target < n_lanes
+    # the window opens mid-consensus below (windows set then; an open
+    # end means the fault holds until the explicit heal)
+
+    faulties, sups = [], []
+    for k in range(n_lanes):
+        faulty = FaultyVerifier(CpuEd25519Verifier(), plan=plan,
+                                device_index=k)
+        sup = SupervisedVerifier(
+            faulty, fallback=CpuEd25519Verifier(),
+            breaker=CircuitBreaker(fail_threshold=2,
+                                   cooldown=rng.float(0.5, 1.5)),
+            budget=DeadlineBudget(base=rng.float(0.3, 0.6), min_s=0.2,
+                                  warm_max=1.0, cold_max=1.0),
+            label=f"lane{k}")
+        faulties.append(faulty)
+        sups.append(sup)
+    pipeline = MultiDeviceCryptoPipeline(
+        ed_inners=sups, config=Config(**FAST), threaded=False)
+    pool = _track(Pool(seed=seed, config=Config(**FAST),
+                       pipeline=pipeline))
+    for obj in (*sups, *faulties):
+        obj.set_clock(pool.timer.get_current_time)
+
+    users = [Ed25519Signer(seed=(b"mdflap%d-%d" % (seed, i))
+                           .ljust(32, b"\0")[:32]) for i in range(4)]
+    reqs = [signed_nym(pool.trustee, u, i + 1) for i, u in enumerate(users)]
+
+    def junk(tag: bytes, n: int = 3):
+        return [(b"%s-%d-%d" % (tag, seed, i), b"\x01" * 63 + b"\x00",
+                 bytes([i + 1]) * 32) for i in range(n)]
+
+    # pre-fault: every lane dispatches
+    pre = _order_and_time(pool, reqs[0], 2)
+    assert pre is not None, f"seed {seed}: healthy multi-lane pool stalled"
+    for k in range(n_lanes):
+        pipeline.verifier(lane=k).verify_batch(junk(b"pre%d" % k))
+    disp_pre = [l.stats["dispatches"] for l in pipeline.lanes]
+    assert all(d >= 1 for d in disp_pre), \
+        f"seed {seed}: lane never dispatched pre-fault: {disp_pre}"
+    assert all(s.breaker.state == CLOSED for s in sups)
+
+    # open the fault window MID-consensus: a request is in flight when
+    # the targeted chip starts failing (every lane carries this plan;
+    # only device_index == target reads the window)
+    pool.submit(reqs[1])
+    pool.run(rng.float(0.0, 0.3))
+    plan.windows = [(pool.timer.get_current_time(), 1e9, kind)]
+    pool.run(0.2)
+    # pinned traffic drives the targeted lane until ITS breaker opens
+    nudges = 0
+    while sups[target].breaker.state == CLOSED and nudges < 30:
+        nudges += 1
+        pool.run(0.2)
+        pipeline.verifier(lane=target).verify_batch(
+            junk(b"fault%d" % nudges))
+    assert sups[target].breaker.state != CLOSED, \
+        f"seed {seed}: targeted lane {target} breaker never opened " \
+        f"under {kind}"
+    # EXACTLY one lane degrades: no ring-wide breaker open
+    others = [k for k in range(n_lanes) if k != target]
+    for k in others:
+        assert sups[k].breaker.state == CLOSED, \
+            f"seed {seed}: lane {k} breaker opened for lane " \
+            f"{target}'s fault ({kind})"
+    # other lanes' dispatch counts keep advancing while lane k is down
+    before = [pipeline.lanes[k].stats["dispatches"] for k in others]
+    for k in others:
+        pipeline.verifier(lane=k).verify_batch(junk(b"during%d" % k))
+    after = [pipeline.lanes[k].stats["dispatches"] for k in others]
+    assert all(b > a for a, b in zip(before, after)), \
+        f"seed {seed}: healthy lanes stopped dispatching: " \
+        f"{before} -> {after}"
+    for k in others:
+        assert sups[k].stats["device_batches"] >= 1
+
+    # aggregate ordering continues above the single-lane floor: the
+    # pool keeps ordering within the healthy-ordering deadline even
+    # with one chip dark (its pinned waves ride host fallback)
+    during = _order_and_time(pool, reqs[2], 4)
+    assert during is not None, \
+        f"seed {seed}: pool stopped ordering with lane {target} dark"
+    st = sups[target].supervisor_stats()
+    assert st["fallback_batches"] >= 1, \
+        f"seed {seed}: no host fallback on the dark lane"
+    assert st["max_stall_s"] <= st["max_budget_s"] + 0.3
+
+    # heal: the targeted verifier recovers, traffic drives the probe ->
+    # re-warm -> re-admission of that ONE lane
+    faulties[target].heal()
+    waited = 0.0
+    while sups[target].breaker.state != CLOSED and waited < 30.0:
+        pool.run(1.0)
+        waited += 1.0
+        pipeline.verifier(lane=target).verify_batch(
+            junk(b"heal%f" % waited))
+    assert sups[target].breaker.state == CLOSED, \
+        f"seed {seed}: lane {target} never re-closed after heal ({kind})"
+    assert faulties[target].rewarms >= 1, \
+        "lane re-admission skipped the re-warm"
+    assert all(s.stats["verdict_forks"] == 0 for s in sups)
+
+    # the healed lane REJOINS: a fresh pinned wave hits its device
+    dev_before = sups[target].stats["device_batches"]
+    pipeline.verifier(lane=target).verify_batch(junk(b"rejoin"))
+    assert sups[target].stats["device_batches"] > dev_before, \
+        f"seed {seed}: healed lane {target} never re-admitted traffic"
+    post = _order_and_time(pool, reqs[3], 5)
+    assert post is not None, f"seed {seed}: pool dead after lane heal"
+    assert_safety(pool)
+
+
+def _move_to_lane(pipeline, tok, lane) -> None:
+    """Re-stage an unhinted token onto a specific lane (scenario
+    plumbing: the federated ring only routes unhinted work to a remote
+    by occupancy, which a quiet sim pool rarely exercises)."""
+    src = next(l for l in pipeline.lanes if tok in l.staged)
+    if src is lane:
+        return
+    src.staged.remove(tok)
+    if not src.staged:
+        src.first_staged = None
+    if not lane.staged:
+        lane.first_staged = pipeline._now()
+    lane.staged.append(tok)
+
+
+def run_crypto_host_down_scenario(seed: int) -> None:
+    """crypto_host_down: a rostered REMOTE crypto host dies/wedges
+    mid-consensus under the federated pipeline (parallel/federation.py).
+    The pool's ring runs 2 local chip lanes plus one remote-host lane
+    (in-proc stand-in for the service client: the same supervised
+    submit/collect + breaker + re-warm surface, on the sim clock so
+    failing seeds replay). The seeded fault window targets ONLY the
+    remote: exactly its breaker opens, its queued waves steal BACK to
+    the local lanes (and are never double-verified), ordering never
+    stalls past the deadline budget, and after the heal the host
+    re-warms and REJOINS — fresh waves hit it again."""
+    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
+    from plenum_tpu_torch.parallel.faults import FaultPlan, FaultyVerifier
+    from plenum_tpu_torch.parallel.federation import FederatedCryptoPipeline
+    from plenum_tpu_torch.parallel.supervisor import (CLOSED, CircuitBreaker,
+                                                DeadlineBudget,
+                                                SupervisedVerifier)
+    rng = SimRandom(seed * 62233 + 29)
+    n_local = 2
+    remote_idx = n_local
+    kind = ("wedge", "drop", "corrupt")[rng.integer(0, 2)]
+    plan = FaultPlan.from_seed(seed, n_devices=n_local + 1, n_faults=0)
+    # the victim IS the scenario kind: force the plan onto the remote
+    # host's lane (seed still drives fault mode, timings, cooldowns)
+    plan.device = remote_idx
+
+    faulties, sups = [], []
+    for k in range(n_local + 1):
+        faulty = FaultyVerifier(CpuEd25519Verifier(), plan=plan,
+                                device_index=k)
+        sup = SupervisedVerifier(
+            faulty, fallback=CpuEd25519Verifier(),
+            breaker=CircuitBreaker(fail_threshold=2,
+                                   cooldown=rng.float(0.5, 1.5)),
+            budget=DeadlineBudget(base=rng.float(0.3, 0.6), min_s=0.2,
+                                  warm_max=1.0, cold_max=1.0),
+            label=f"lane{k}" if k < n_local else "remote0")
+        faulties.append(faulty)
+        sups.append(sup)
+    pipeline = FederatedCryptoPipeline(
+        ed_inners=sups[:n_local], remote_inners=[sups[remote_idx]],
+        hosts=["sim://crypto-host-0"],
+        config=Config(**FAST, PIPELINE_STEAL_THRESHOLD=4,
+                      PIPELINE_STEAL_COOLDOWN=0.1),
+        threaded=False)
+    remote_lane = pipeline.lanes[remote_idx]
+    pool = _track(Pool(seed=seed, config=Config(**FAST),
+                       pipeline=pipeline))
+    for obj in (*sups, *faulties):
+        obj.set_clock(pool.timer.get_current_time)
+
+    users = [Ed25519Signer(seed=(b"hdown%d-%d" % (seed, i))
+                           .ljust(32, b"\0")[:32]) for i in range(4)]
+    reqs = [signed_nym(pool.trustee, u, i + 1) for i, u in enumerate(users)]
+
+    def junk(tag: bytes, n: int = 3):
+        return [(b"%s-%d-%d" % (tag, seed, i), b"\x01" * 63 + b"\x00",
+                 bytes([i + 1]) * 32) for i in range(n)]
+
+    # pre-fault: ordering healthy, every lane (including the rented
+    # remote) carries at least one wave
+    pre = _order_and_time(pool, reqs[0], 2)
+    assert pre is not None, f"seed {seed}: healthy federated pool stalled"
+    for k in range(n_local):
+        pipeline.verifier(lane=k).verify_batch(junk(b"pre%d" % k))
+    rtok = pipeline.submit_verify(junk(b"pre-remote"))
+    rtok.lane_hint = None
+    _move_to_lane(pipeline, rtok, remote_lane)
+    assert pipeline.collect_verify(rtok, wait=True) is not None
+    assert remote_lane.stats["dispatches"] >= 1, \
+        f"seed {seed}: the remote lane never carried a wave pre-fault"
+    assert all(s.breaker.state == CLOSED for s in sups)
+
+    # the host dies MID-consensus: a request is in flight when the
+    # remote's fault window opens (local lanes carry the same plan but
+    # only device_index == remote reads it)
+    pool.submit(reqs[1])
+    pool.run(rng.float(0.0, 0.3))
+    plan.windows = [(pool.timer.get_current_time(), 1e9, kind)]
+    pool.run(0.2)
+    nudges = 0
+    while sups[remote_idx].breaker.state == CLOSED and nudges < 30:
+        nudges += 1
+        pool.run(0.2)
+        sups[remote_idx].verify_batch(junk(b"fault%d" % nudges))
+    assert sups[remote_idx].breaker.state != CLOSED, \
+        f"seed {seed}: remote host breaker never opened under {kind}"
+    # ONLY the remote lane degrades
+    for k in range(n_local):
+        assert sups[k].breaker.state == CLOSED, \
+            f"seed {seed}: local lane {k} breaker opened for the " \
+            f"remote host's {kind}"
+
+    # steal-back: waves queued on the dead host's lane evacuate to the
+    # LOCAL lanes (unconditionally — no threshold, no cooldown) and
+    # settle there exactly once
+    stok = pipeline.submit_verify(junk(b"stranded", n=4))
+    stok.lane_hint = None
+    _move_to_lane(pipeline, stok, remote_lane)
+    steals_before = pipeline.stats["steals"]
+    items_before = pipeline.stats["dispatched_items"]
+    pipeline.service()
+    assert pipeline.stats["steals"] > steals_before, \
+        f"seed {seed}: dead host's queue never stole back"
+    assert pipeline._lane_backlog(remote_lane) == 0, \
+        f"seed {seed}: the open lane kept queued waves"
+    out = pipeline.collect_verify(stok, wait=True)
+    assert out is not None and len(out) == 4
+    assert pipeline.stats["dispatched_items"] - items_before == 4, \
+        f"seed {seed}: a stolen wave was double-verified"
+
+    # local lanes keep dispatching; aggregate ordering continues within
+    # the deadline budget while the host is dark
+    before = [pipeline.lanes[k].stats["dispatches"]
+              for k in range(n_local)]
+    for k in range(n_local):
+        pipeline.verifier(lane=k).verify_batch(junk(b"during%d" % k))
+    after = [pipeline.lanes[k].stats["dispatches"] for k in range(n_local)]
+    assert all(b > a for a, b in zip(before, after)), \
+        f"seed {seed}: local lanes stalled: {before} -> {after}"
+    during = _order_and_time(pool, reqs[2], 4)
+    assert during is not None, \
+        f"seed {seed}: pool stopped ordering with the host down"
+    st = sups[remote_idx].supervisor_stats()
+    assert st["fallback_batches"] >= 1, \
+        f"seed {seed}: no fallback recorded on the dead host's lane"
+    assert st["max_stall_s"] <= st["max_budget_s"] + 0.3, \
+        f"seed {seed}: stall {st['max_stall_s']:.2f}s past budget " \
+        f"{st['max_budget_s']:.2f}s"
+    assert pipeline.federation_state()["remote_breakers_open"] == 1
+
+    # heal: the host returns, the probe re-warms (for a real service
+    # client this is the reconnect), the breaker re-closes
+    faulties[remote_idx].heal()
+    waited = 0.0
+    while sups[remote_idx].breaker.state != CLOSED and waited < 30.0:
+        pool.run(1.0)
+        waited += 1.0
+        sups[remote_idx].verify_batch(junk(b"heal%f" % waited))
+    assert sups[remote_idx].breaker.state == CLOSED, \
+        f"seed {seed}: host breaker never re-closed after heal ({kind})"
+    assert faulties[remote_idx].rewarms >= 1, \
+        "host re-admission skipped the re-warm"
+    assert all(s.stats["verdict_forks"] == 0 for s in sups)
+
+    # rejoin: a fresh wave through the ring reaches the host again
+    dev_before = sups[remote_idx].stats["device_batches"]
+    jtok = pipeline.submit_verify(junk(b"rejoin"))
+    jtok.lane_hint = None
+    _move_to_lane(pipeline, jtok, remote_lane)
+    assert pipeline.collect_verify(jtok, wait=True) is not None
+    assert sups[remote_idx].stats["device_batches"] > dev_before, \
+        f"seed {seed}: healed host never re-admitted ring traffic"
+    assert pipeline.federation_state()["remote_breakers_open"] == 0
+    post = _order_and_time(pool, reqs[3], 5)
+    assert post is not None, f"seed {seed}: pool dead after host heal"
+    assert_safety(pool)
+
+
 def run_device_flap_with_commit_wave(seed: int) -> None:
     """device_flap with the fault aimed at the COMMIT-WAVE lane: the
     pool's triple-root recommit (verkle state + ledger + audit) rides a
@@ -297,7 +822,6 @@ def run_device_flap_with_commit_wave(seed: int) -> None:
     waves keep dispatching — a cmt wedge is never ring-wide), and after
     the heal fresh cmt waves hit the engine again."""
     from plenum_tpu_torch.common.node_messages import DOMAIN_LEDGER_ID
-    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
     from plenum_tpu_torch.parallel.pipeline import CryptoPipeline
     from plenum_tpu_torch.state.commitment import kzg
 
@@ -328,6 +852,7 @@ def run_device_flap_with_commit_wave(seed: int) -> None:
     cfg = dict(FAST, STATE_COMMITMENT="verkle")
     # the port's ring takes its Ed25519 inner explicitly; the reference's
     # default is this CPU verifier
+    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
     pipeline = CryptoPipeline(ed_inner=CpuEd25519Verifier(), cmt_inner=eng,
                               config=Config(**cfg))
     pool = _track(Pool(seed=seed, config=Config(**cfg),
@@ -377,6 +902,647 @@ def run_device_flap_with_commit_wave(seed: int) -> None:
     assert_safety(pool)
 
 
+def run_lying_reader_scenario(seed: int) -> None:
+    """A Byzantine node forges read replies; the verifying read client
+    must reject every forgery kind and fail over to an honest node
+    within its per-rung deadline — or, when the liar strips the proof
+    entirely, escalate to the f+1 broadcast (which the diverging-reader
+    vote-key fix keeps sound)."""
+    import copy
+
+    from plenum_tpu_torch.common.node_messages import Reply
+    from plenum_tpu_torch.execution.txn import GET_NYM
+    from plenum_tpu_torch.reads import READ_PROOF, result_digest
+    from test_torch_reads import FOREVER, LyingPlane, make_driver
+
+    rng = SimRandom(seed * 6151 + 13)
+    pool = _track(Pool(seed=seed, config=Config(**FAST)))
+    user = Ed25519Signer(seed=(b"liar%d" % seed).ljust(32, b"\0")[:32])
+    assert _order_and_time(pool, signed_nym(pool.trustee, user, 1), 2) \
+        is not None
+
+    def forge_value(result):
+        env = result.get(READ_PROOF)
+        if env and env.get("entries"):
+            e = env["entries"][0]
+            if e.get("value"):
+                e["value"] = bytes(
+                    reversed(bytes.fromhex(e["value"]))).hex()
+        return result
+
+    def forge_root(result):
+        env = result.get(READ_PROOF)
+        if env and env.get("root_hash"):
+            env["root_hash"] = "ab" * 32
+            env["result_digest"] = result_digest(result).hex()
+        return result
+
+    def mismatch_ms(result):
+        env = result.get(READ_PROOF)
+        if env:
+            ms = env["multi_signature"]
+            ms[1] = list(ms[1])[:-1]     # claim a smaller participant set
+            env["result_digest"] = result_digest(result).hex()
+        return result
+
+    def tamper_data(result):
+        if isinstance(result.get("data"), dict):
+            result["data"] = dict(result["data"], verkey="EvilVerkey1111")
+            env = result.get(READ_PROOF)
+            if env:                      # smart liar: re-binds the digest
+                env["result_digest"] = result_digest(result).hex()
+        return result
+
+    def strip(result):
+        result.pop(READ_PROOF, None)
+        return result
+
+    kind, mutate = [("forge_value", forge_value),
+                    ("forge_root", forge_root),
+                    ("mismatch_ms", mismatch_ms),
+                    ("tamper_data", tamper_data),
+                    ("strip", strip)][rng.integer(0, 4)]
+    liar = pool.names[rng.integer(0, len(pool.names) - 1)]
+    node = pool.nodes[liar]
+    node.read_plane = LyingPlane(node.read_plane, mutate)
+
+    driver = make_driver(pool, client="fuzz", freshness_s=FOREVER)
+    q = Request("fuzz", 50, {"type": GET_NYM, "dest": user.identifier})
+    order = [liar] + [n for n in pool.names if n != liar]
+    t0 = pool.timer.get_current_time()
+    res = driver.read(q, per_node_s=2.0, order=order)
+    took = pool.timer.get_current_time() - t0
+    deadline = 2.0 * len(pool.names) + 1.0
+    assert took <= deadline, \
+        f"seed {seed}: {kind} read took {took:.1f}s > {deadline:.1f}s"
+    s = driver.stats
+    if kind == "strip":
+        # no proof at all -> escalate to the legacy f+1 broadcast; the
+        # content vote key keeps the liar's divergent data sub-quorum
+        assert res is None and s.fallbacks == 1, f"seed {seed}"
+        from plenum_tpu_torch.client.client import PoolClient
+        pool.submit(q, client="fuzz-bc")
+        pool.run(2.0)
+        votes: dict = {}
+        for name in pool.names:
+            for m, c in pool.client_msgs[name]:
+                if c == "fuzz-bc" and isinstance(m, Reply):
+                    key = PoolClient._vote_key(
+                        {"op": "REPLY", "result": copy.deepcopy(m.result)})
+                    votes[key] = votes.get(key, 0) + 1
+        agreed = [k for k, v in votes.items()
+                  if v >= pool.nodes[liar].f + 1]
+        assert len(agreed) == 1, f"seed {seed}: votes {votes}"
+    else:
+        assert res is not None, f"seed {seed}: {kind} never failed over"
+        assert res["data"]["verkey"] == user.verkey_b58, f"seed {seed}"
+        assert s.verify_failures >= 1 and s.failovers >= 1, \
+            f"seed {seed}: {kind} accepted a forged reply " \
+            f"({s.summary()})"
+        assert s.single_reply_ok == 1 and s.fallbacks == 0, f"seed {seed}"
+    assert_safety(pool)
+
+
+def run_lying_reader_verkle_scenario(seed: int) -> None:
+    """The lying_reader family on a VERKLE-backed pool (STATE_COMMITMENT
+    config seam): a Byzantine node forges wide-commitment read replies
+    and every rung must fail CLOSED and fail over to an honest node —
+
+    * ``forge_opening``: the aggregated opening proof (pi) is tampered;
+    * ``wrong_root``: the envelope cites a commitment root the pool
+      never signed;
+    * ``splice_multi``: one key's value is swapped INSIDE an aggregated
+      multi-key answer (the 2-key TAA chain), with the result data and
+      result_digest rebound by a smart liar — only the single pairing
+      check can catch it;
+    * ``strip``: the proof is removed entirely -> the ladder escalates
+      to the f+1 broadcast, which must still agree on honest content.
+    """
+    import copy
+
+    from plenum_tpu_torch.common.node_messages import (CONFIG_LEDGER_ID, Reply)
+    from plenum_tpu_torch.common.serialization import pack as _pack
+    from plenum_tpu_torch.execution.txn import (GET_NYM,
+                                          GET_TXN_AUTHOR_AGREEMENT,
+                                          TXN_AUTHOR_AGREEMENT)
+    from plenum_tpu_torch.reads import READ_PROOF, result_digest
+    from test_torch_reads import FOREVER, LyingPlane, make_driver
+
+    rng = SimRandom(seed * 7177 + 29)
+    pool = _track(Pool(seed=seed,
+                       config=Config(**FAST, STATE_COMMITMENT="verkle")))
+    user = Ed25519Signer(seed=(b"vliar%d" % seed).ljust(32, b"\0")[:32])
+    assert _order_and_time(pool, signed_nym(pool.trustee, user, 1), 2) \
+        is not None, f"seed {seed}: verkle pool failed to order"
+    # a TAA gives GET_TXN_AUTHOR_AGREEMENT its 2-key deref chain — the
+    # aggregated MULTI-key envelope the splice rung attacks
+    taa = Request(pool.trustee.identifier, 2,
+                  {"type": TXN_AUTHOR_AGREEMENT, "version": "1",
+                   "text": "terms %d" % seed})
+    taa.signature = pool.trustee.sign_b58(taa.signing_bytes())
+    pool.submit(taa)
+    config_ledger = pool.nodes[pool.names[0]].c.db.get_ledger(
+        CONFIG_LEDGER_ID)
+    waited = 0.0
+    while config_ledger.size < 1 and waited < 20.0:
+        pool.run(0.5)
+        waited += 0.5
+    assert config_ledger.size >= 1, f"seed {seed}: TAA never ordered"
+    pool.run(1.0)                    # let the config anchor land
+
+    def forge_opening(result):
+        env = result.get(READ_PROOF)
+        if env and env.get("kind") == "verkle":
+            pi = bytearray(bytes.fromhex(env["proof"]["pi"]))
+            pi[0] ^= 0xFF
+            pi[-1] ^= 0xFF
+            env["proof"]["pi"] = bytes(pi).hex()
+        return result
+
+    def wrong_root(result):
+        env = result.get(READ_PROOF)
+        if env and env.get("kind") == "verkle":
+            env["root_hash"] = "ab" * 32
+            env["result_digest"] = result_digest(result).hex()
+        return result
+
+    def splice_multi(result):
+        env = result.get(READ_PROOF)
+        if env and env.get("kind") == "verkle" \
+                and len(env.get("entries", ())) >= 2:
+            # swap the terminal key's value inside the aggregated proof;
+            # rebind data + digest so key chain, consistency, and digest
+            # ALL pass — only the pairing check stands
+            forged = dict(result.get("data") or {}, text="EVIL TERMS")
+            env["entries"][-1]["value"] = _pack(forged).hex()
+            result["data"] = forged
+            env["result_digest"] = result_digest(result).hex()
+        return result
+
+    def strip(result):
+        result.pop(READ_PROOF, None)
+        return result
+
+    kind, mutate, query = [
+        ("forge_opening", forge_opening,
+         {"type": GET_NYM, "dest": user.identifier}),
+        ("wrong_root", wrong_root,
+         {"type": GET_NYM, "dest": user.identifier}),
+        ("splice_multi", splice_multi,
+         {"type": GET_TXN_AUTHOR_AGREEMENT}),
+        ("strip", strip,
+         {"type": GET_NYM, "dest": user.identifier}),
+    ][rng.integer(0, 3)]
+    liar = pool.names[rng.integer(0, len(pool.names) - 1)]
+    node = pool.nodes[liar]
+    node.read_plane = LyingPlane(node.read_plane, mutate)
+
+    driver = make_driver(pool, client="vfuzz", freshness_s=FOREVER)
+    q = Request("vfuzz", 50, dict(query))
+    order = [liar] + [n for n in pool.names if n != liar]
+    t0 = pool.timer.get_current_time()
+    res = driver.read(q, per_node_s=2.0, order=order)
+    took = pool.timer.get_current_time() - t0
+    deadline = 2.0 * len(pool.names) + 1.0
+    assert took <= deadline, \
+        f"seed {seed}: {kind} read took {took:.1f}s > {deadline:.1f}s"
+    s = driver.stats
+    if kind == "strip":
+        # no proof at all -> escalate to the legacy f+1 broadcast; the
+        # content vote key keeps the liar's divergent data sub-quorum
+        assert res is None and s.fallbacks == 1, f"seed {seed}"
+        from plenum_tpu_torch.client.client import PoolClient
+        pool.submit(q, client="vfuzz-bc")
+        pool.run(2.0)
+        votes: dict = {}
+        for name in pool.names:
+            for m, c in pool.client_msgs[name]:
+                if c == "vfuzz-bc" and isinstance(m, Reply):
+                    key = PoolClient._vote_key(
+                        {"op": "REPLY", "result": copy.deepcopy(m.result)})
+                    votes[key] = votes.get(key, 0) + 1
+        agreed = [k for k, v in votes.items()
+                  if v >= pool.nodes[liar].f + 1]
+        assert len(agreed) == 1, f"seed {seed}: votes {votes}"
+    else:
+        assert res is not None, f"seed {seed}: {kind} never failed over"
+        env = res.get(READ_PROOF) or {}
+        assert env.get("kind") == "verkle", \
+            f"seed {seed}: honest reply not verkle ({env.get('kind')})"
+        if kind == "splice_multi":
+            assert len(env.get("entries", ())) >= 2, \
+                f"seed {seed}: splice rung got a single-key envelope"
+            assert res["data"]["text"] == "terms %d" % seed, f"seed {seed}"
+        else:
+            assert res["data"]["verkey"] == user.verkey_b58, f"seed {seed}"
+        assert s.verify_failures >= 1 and s.failovers >= 1, \
+            f"seed {seed}: {kind} accepted a forged verkle reply " \
+            f"({s.summary()})"
+        assert s.single_reply_ok == 1 and s.fallbacks == 0, f"seed {seed}"
+    assert_safety(pool)
+
+
+# --- scenario kind `client_flood`: the FRONT DOOR is under attack -----------
+# Seed-driven bursts of hot clients (including bad-signature floods) hit
+# per-node ingress planes while honest steady clients keep writing. The
+# plane must shed the surplus EXPLICITLY (LoadShed replies, bounded
+# queues), bad-signature floods must die in the batched verifier without
+# ever reaching the pool, honest traffic must keep ordering within its
+# SLO, and the node's raw client inbox must never wedge. Composable with
+# the crypto-plane fault (device_flap's supervised verifier): a shed
+# storm during CPU fallback stays bounded.
+
+
+def _ingress_order_and_time(pool, ingress, req, expect_size: float,
+                            timeout: float = 25.0, inbox_peaks=None):
+    """Submit through EVERY node's ingress plane; -> sim seconds until
+    every node's domain ledger reaches expect_size, or None."""
+    t0 = pool.timer.get_current_time()
+    for n in pool.names:
+        ingress[n].submit(req.to_dict(), "steady")
+    elapsed = 0.0
+    while elapsed < timeout:
+        pool.run(0.5)
+        elapsed += 0.5
+        if inbox_peaks is not None:
+            inbox_peaks.append(max(len(pool.nodes[n]._client_inbox)
+                                   for n in pool.names))
+        if all(len(_domain_txns(pool.nodes[n])) >= expect_size
+               for n in pool.names):
+            return pool.timer.get_current_time() - t0
+    return None
+
+
+def run_client_flood_scenario(seed: int, faulted_plane=None) -> None:
+    from plenum_tpu_torch.client.sim_clients import burst_writes
+    from plenum_tpu_torch.common.node_messages import LoadShed
+    from plenum_tpu_torch.ingress import IngressPlane
+
+    rng = SimRandom(seed * 48611 + 7)
+    cap = rng.integer(2, 6)
+    config = Config(**FAST, INGRESS_CLIENT_QUEUE_CAP=cap,
+                    INGRESS_SLO_P95=0.2, INGRESS_CONTROL_INTERVAL=0.5)
+    verifier = faulted_plane[0] if faulted_plane is not None else None
+    pool = _track(Pool(seed=seed, config=config, verifier=verifier))
+    if faulted_plane is not None:
+        sup, faulty = faulted_plane
+        sup.set_clock(pool.timer.get_current_time)
+        faulty.set_clock(pool.timer.get_current_time)
+    ingress = {n: IngressPlane(pool.nodes[n]) for n in pool.names}
+    inbox_peaks: list[int] = []
+    # live telemetry rides the fuzz: every node's snapshots feed ONE
+    # aggregator; the flood below MUST fire the ingress burn-rate alert
+    # (and the healthy pre-flood phase must fire none)
+    from plenum_tpu_torch.observability import FleetAggregator
+    agg = FleetAggregator(config=config)
+    for n in pool.names:
+        pool.nodes[n].telemetry.add_sink(agg.ingest)
+
+    def ingress_burn_pages():
+        return [a for a in agg.alerts
+                if a.kind == "slo_burn.ingress" and a.severity == "page"]
+
+    users = [Ed25519Signer(seed=(b"cf%d-%d" % (seed, i)).ljust(32, b"\0")[:32])
+             for i in range(2)]
+    honest = [signed_nym(pool.trustee, u, i + 1)
+              for i, u in enumerate(users)]
+
+    # pre-flood: honest ordering through the plane, timed (the SLO datum)
+    pre = _ingress_order_and_time(pool, ingress, honest[0], 2,
+                                  inbox_peaks=inbox_peaks)
+    assert pre is not None, f"seed {seed}: healthy plane failed to order"
+    assert not ingress_burn_pages(), \
+        f"seed {seed}: burn alert fired on a healthy plane (false positive)"
+
+    if faulted_plane is not None:
+        # crypto-plane fault lands BEFORE the flood: the shed storm rides
+        # hedged CPU-fallback verdicts end to end
+        kind = ("wedge", "drop", "corrupt")[rng.integer(0, 2)]
+        getattr(faulted_plane[1], kind)()
+
+    # the flood: hot clients burst well past their per-client caps; half
+    # the seeds flood VALID-shaped bad signatures (they must die in the
+    # ingress auth batch, not in the pool)
+    n_hot = rng.integer(8, 24)
+    per_client = cap + rng.integer(3, 8)
+    bad = rng.integer(0, 2) == 0
+    burst = burst_writes(pool.trustee, n_hot, per_client, seed=seed,
+                         bad_sigs=bad)
+    for client, req in burst:
+        for n in pool.names:
+            ingress[n].submit(req.to_dict(), client)
+    # honest steady client writes DURING the flood: its queue is its own,
+    # so fairness (not luck) keeps it inside the SLO
+    during = _ingress_order_and_time(
+        pool, ingress, honest[1],
+        len(_domain_txns(pool.nodes[pool.names[0]])) + 1,
+        timeout=30.0, inbox_peaks=inbox_peaks)
+    deadline = pre + (15.0 if faulted_plane is not None else 8.0)
+    assert during is not None, \
+        f"seed {seed}: honest client starved during flood (bad={bad})"
+    assert during <= deadline, \
+        f"seed {seed}: honest order took {during:.1f}s > {deadline:.1f}s"
+
+    # explicit sheds, never silent: every over-cap burst write got a
+    # LoadShed reply on every node
+    expect_shed = n_hot * (per_client - cap)
+    for n in pool.names:
+        assert ingress[n].stats["shed"] >= expect_shed, \
+            f"seed {seed}: {n} shed {ingress[n].stats['shed']} < " \
+            f"{expect_shed}"
+        sheds = [m for m, _ in pool.client_msgs[n]
+                 if isinstance(m, LoadShed)]
+        assert len(sheds) >= expect_shed, f"seed {seed}: missing replies"
+        # bounded queues: depth never exceeded what the caps allow
+        assert ingress[n].stats["queue_depth_max"] <= \
+            (n_hot + 2) * cap + 2, f"seed {seed}: queue grew past caps"
+    if bad:
+        # the bad-signature flood died at the front door: auth rejects
+        # recorded, and NOT ONE flood write reached the ledger
+        assert any(ingress[n].stats["auth_fail"] > 0 for n in pool.names), \
+            f"seed {seed}: bad-sig flood never hit the batched verifier"
+        assert len(_domain_txns(pool.nodes[pool.names[0]])) == 3, \
+            f"seed {seed}: a bad-signature write ordered"
+    # sustain the flood (same hot clients, fresh writes) across several
+    # snapshot intervals: the multi-window rule pages on a shed storm
+    # that PERSISTS on both burn windows (a lone burst is a blip — that
+    # it cannot page is pinned deterministically in test_telemetry), and
+    # the breadth rule counts the capped-client storm against the budget
+    # because MANY distinct clients are being refused, not one abuser
+    for wave in range(6):
+        for client, req in burst_writes(pool.trustee, n_hot, per_client,
+                                        seed=seed * 131 + wave + 1,
+                                        bad_sigs=bad):
+            for n in pool.names:
+                ingress[n].submit(req.to_dict(), client)
+        pool.run(1.0)
+    assert ingress_burn_pages(), \
+        f"seed {seed}: sustained flood never fired the ingress burn " \
+        f"alert (alerts: {[a.to_dict() for a in agg.alerts]})"
+    # the pool never wedged: the raw client inbox stayed near-empty the
+    # whole run (writes ride ingress, never the inbox)
+    assert max(inbox_peaks) <= 10, \
+        f"seed {seed}: client inbox grew to {max(inbox_peaks)}"
+    if faulted_plane is not None:
+        st = faulted_plane[0].supervisor_stats()
+        assert st["fallback_batches"] >= 1, \
+            f"seed {seed}: flood under fault never took the CPU fallback"
+        assert st["max_stall_s"] <= st["max_budget_s"] + 0.3, \
+            f"seed {seed}: shed storm stalled past the deadline budget"
+    assert_safety(pool)
+
+
+def run_client_flood_with_device_flap(seed: int) -> None:
+    """client_flood composed with device_flap: the shared crypto plane is
+    faulted before the flood, so every shed decision and every batched
+    verdict rides the supervisor's hedged CPU fallback."""
+    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
+    from plenum_tpu_torch.parallel.faults import FaultyVerifier
+    from plenum_tpu_torch.parallel.supervisor import (CircuitBreaker,
+                                                DeadlineBudget,
+                                                SupervisedVerifier)
+    rng = SimRandom(seed * 75403 + 11)
+    faulty = FaultyVerifier(CpuEd25519Verifier())
+    sup = SupervisedVerifier(
+        faulty, fallback=CpuEd25519Verifier(),
+        breaker=CircuitBreaker(fail_threshold=2,
+                               cooldown=rng.float(0.5, 1.5)),
+        budget=DeadlineBudget(base=rng.float(0.3, 0.6), min_s=0.2,
+                              warm_max=1.0, cold_max=1.0))
+    run_client_flood_scenario(seed, faulted_plane=(sup, faulty))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
+def test_sim_client_flood_fuzz(bucket):
+    for seed in range(bucket * 5, (bucket + 1) * 5):
+        _run_with_artifacts(run_client_flood_scenario, seed)
+
+
+def test_sim_client_flood_smoke():
+    """One client_flood scenario always runs in the default suite."""
+    _run_with_artifacts(run_client_flood_scenario, 2)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(2))
+def test_sim_client_flood_device_flap_fuzz(bucket):
+    for seed in range(bucket * 3, (bucket + 1) * 3):
+        _run_with_artifacts(run_client_flood_with_device_flap, seed)
+
+
+def test_sim_client_flood_device_flap_smoke():
+    """One composed flood+crypto-fault scenario in the default suite."""
+    _run_with_artifacts(run_client_flood_with_device_flap, 1)
+
+
+LYING_READER_SEEDS = 20
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
+def test_sim_lying_reader_fuzz(bucket):
+    for seed in range(bucket * 5, (bucket + 1) * 5):
+        _run_with_artifacts(run_lying_reader_scenario, seed)
+
+
+def test_sim_lying_reader_smoke():
+    """One lying_reader scenario always runs in the default suite."""
+    _run_with_artifacts(run_lying_reader_scenario, 2)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
+def test_sim_lying_reader_verkle_fuzz(bucket):
+    for seed in range(bucket * 5, (bucket + 1) * 5):
+        _run_with_artifacts(run_lying_reader_verkle_scenario, seed)
+
+
+def test_sim_lying_reader_verkle_smoke():
+    """Two verkle rungs always run in the default suite: seed 4 draws
+    the spliced-multi-key rung (the aggregated-proof-specific forgery),
+    seed 9 the stripped-proof escalation."""
+    _run_with_artifacts(run_lying_reader_verkle_scenario, 4)
+    _run_with_artifacts(run_lying_reader_verkle_scenario, 9)
+
+
+def test_sim_lying_reader_stale_replay():
+    """A liar replaying a captured pre-rotation reply (honest sig, old
+    root) must be rejected by the freshness bound and failed over."""
+    from plenum_tpu_torch.execution.txn import GET_NYM, NYM
+    from test_torch_reads import LyingPlane, make_driver
+
+    pool = Pool(seed=5, config=Config(**FAST))
+    user = Ed25519Signer(seed=b"stale-user".ljust(32, b"\0")[:32])
+    assert _order_and_time(pool, signed_nym(pool.trustee, user, 1), 2) \
+        is not None
+
+    # capture an honest reply at t0 through the liar-to-be
+    liar = pool.names[0]
+    node = pool.nodes[liar]
+    captured = node.read_plane.answer(
+        Request("cap", 1, {"type": GET_NYM, "dest": user.identifier}))
+
+    pool.run(12.0)                      # age the captured anchor
+    rotated = Ed25519Signer(seed=b"stale-user-2".ljust(32, b"\0")[:32])
+    upd = Request(pool.trustee.identifier, 2,
+                  {"type": NYM, "dest": user.identifier,
+                   "verkey": rotated.verkey_b58})
+    upd.signature = pool.trustee.sign_b58(upd.signing_bytes())
+    assert _order_and_time(pool, upd, 3) is not None
+
+    # replay keeps the asker echo so the client matches the reply to its
+    # request; the result digest excludes those fields, so the binding
+    # still verifies and rejection comes from the freshness bound alone
+    node.read_plane = LyingPlane(
+        node.read_plane,
+        lambda result: dict(captured, identifier=result.get("identifier"),
+                            reqId=result.get("reqId")))
+    driver = make_driver(pool, client="stale", freshness_s=8.0)
+    q = Request("stale", 9, {"type": GET_NYM, "dest": user.identifier})
+    res = driver.read(q, per_node_s=2.0,
+                      order=[liar] + [n for n in pool.names if n != liar])
+    assert res is not None
+    assert res["data"]["verkey"] == rotated.verkey_b58
+    assert driver.stats.failovers >= 1
+    assert driver.stats.verify_failures >= 1
+
+
+def run_lying_edge_scenario(seed: int, force_rung=None) -> None:
+    """The `lying_edge` fuzz kind: the Proof CDN's trust claim
+    (reads/edge.py — deny-but-never-forge) under seeded attack. A
+    malicious KEYLESS edge cache serves poisoned cached envelopes,
+    strips proofs, or refuses outright; the verifying client must
+    convert every forgery into a rejected reply + ladder failover and
+    every denial into escalation — the read always completes with the
+    true value, within the ladder deadline, with ZERO forged
+    acceptances across all seeds. Rungs:
+
+    * ``forge_value``: a state-proof entry's value bytes are reversed
+      inside the cached envelope;
+    * ``forge_root``: the envelope cites a root the pool never signed,
+      with the result digest rebound by a smart liar;
+    * ``tamper_data``: the result data is swapped and the digest
+      rebound — only proof verification stands;
+    * ``strip``: the proof is removed -> NO_PROOF escalation (a deeper
+      rung can still prove);
+    * ``deny``: the edge refuses -> NACK, one timed-out rung.
+    """
+    import copy
+
+    from plenum_tpu_torch.execution.txn import GET_NYM
+    from plenum_tpu_torch.reads import READ_PROOF, result_digest
+    from test_torch_edge import attach_edge, make_edge_driver
+
+    rng = SimRandom(seed * 9311 + 7)
+    pool = _track(Pool(seed=seed, config=Config(**FAST)))
+    edge = attach_edge(pool, name="liar-edge")
+    user = Ed25519Signer(seed=(b"eliar%d" % seed).ljust(32, b"\0")[:32])
+    assert _order_and_time(pool, signed_nym(pool.trustee, user, 1), 2) \
+        is not None
+
+    rejected: list = []
+    driver = make_edge_driver(pool, edge, client="efuzz",
+                              on_fail=rejected.append)
+    # warm the cache HONESTLY first: the attack then mutates cached
+    # bytes (a poisoned entry), not a mere forwarding proxy
+    q0 = Request("efuzz", 50, {"type": GET_NYM, "dest": user.identifier})
+    warm = driver.read(q0, per_node_s=2.0)
+    assert warm is not None and driver.stats.edge_ok == 1, f"seed {seed}"
+
+    def forge_value(result):
+        env = result.get(READ_PROOF)
+        if env and env.get("entries"):
+            e = env["entries"][0]
+            if e.get("value"):
+                e["value"] = bytes(
+                    reversed(bytes.fromhex(e["value"]))).hex()
+        return result
+
+    def forge_root(result):
+        env = result.get(READ_PROOF)
+        if env and env.get("root_hash"):
+            env["root_hash"] = "ab" * 32
+            env["result_digest"] = result_digest(result).hex()
+        return result
+
+    def tamper_data(result):
+        if isinstance(result.get("data"), dict):
+            result["data"] = dict(result["data"], verkey="EvilVerkey1111")
+            env = result.get(READ_PROOF)
+            if env:
+                env["result_digest"] = result_digest(result).hex()
+        return result
+
+    def strip(result):
+        result.pop(READ_PROOF, None)
+        return result
+
+    def deny(result):
+        return None
+
+    kinds = [("forge_value", forge_value), ("forge_root", forge_root),
+             ("tamper_data", tamper_data), ("strip", strip),
+             ("deny", deny)]
+    kind, mutate = kinds[force_rung if force_rung is not None
+                         else rng.integer(0, 4)]
+
+    real_serve = edge.cache.serve
+
+    def lying(request):
+        res = real_serve(request)
+        return mutate(copy.deepcopy(res)) if isinstance(res, dict) else res
+
+    edge.cache.serve = lying
+
+    q = Request("efuzz", 51, {"type": GET_NYM, "dest": user.identifier})
+    t0 = pool.timer.get_current_time()
+    res = driver.read(q, per_node_s=2.0)
+    took = pool.timer.get_current_time() - t0
+    deadline = 2.0 * (len(pool.names) + 1) + 1.0
+    assert took <= deadline, \
+        f"seed {seed}: {kind} read took {took:.1f}s > {deadline:.1f}s"
+    s = driver.stats
+    # the ONE invariant every rung shares: the lying edge never forges
+    # an acceptance and never kills the read — a validator answers
+    assert res is not None, f"seed {seed}: {kind} denied service for good"
+    assert res["data"]["verkey"] == user.verkey_b58, \
+        f"seed {seed}: {kind} FORGED an accepted read"
+    assert s.edge_ok == 1 and s.fallbacks == 0, \
+        f"seed {seed}: {kind} ({s.summary()})"
+    if kind in ("forge_value", "forge_root", "tamper_data"):
+        assert s.edge_verify_failures >= 1 and s.failovers >= 1, \
+            f"seed {seed}: {kind} not rejected ({s.summary()})"
+        assert rejected == [edge.name], f"seed {seed}"  # fleet was told
+    elif kind == "strip":
+        assert s.edge_escalations >= 1 and s.failovers >= 1, \
+            f"seed {seed}: strip did not escalate ({s.summary()})"
+        assert s.edge_verify_failures == 0, f"seed {seed}"
+    else:                                   # deny
+        assert s.timeouts >= 1 and s.failovers >= 1, \
+            f"seed {seed}: deny did not fail over ({s.summary()})"
+        assert s.edge_verify_failures == 0, f"seed {seed}"
+    assert_safety(pool)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
+def test_sim_lying_edge_fuzz(bucket):
+    for seed in range(bucket * 5, (bucket + 1) * 5):
+        _run_with_artifacts(run_lying_edge_scenario, seed)
+
+
+def test_sim_lying_edge_smoke():
+    """Two edge rungs always run in the default suite: the poisoned
+    cached entry (forgery -> rejected + failover) and the denial rung
+    (NACK -> timed-out rung + failover) — deny-but-never-forge in
+    tier-1."""
+    _run_with_artifacts(
+        lambda s: run_lying_edge_scenario(s, force_rung=2), 2)
+    _run_with_artifacts(
+        lambda s: run_lying_edge_scenario(s, force_rung=4), 3)
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("bucket", range(4))
 def test_sim_device_flap_fuzz(bucket):
@@ -404,6 +1570,20 @@ def test_sim_device_flap_pipeline_smoke():
 
 @pytest.mark.slow
 @pytest.mark.parametrize("bucket", range(4))
+def test_sim_device_flap_multidevice_fuzz(bucket):
+    for seed in range(bucket * 3, bucket * 3 + 3):
+        _run_with_artifacts(run_device_flap_multidevice, seed)
+
+
+def test_sim_device_flap_multidevice_smoke():
+    """One per-device device_flap scenario always runs in the default
+    suite: the seed-targeted chip's lane breaker opens ALONE, the other
+    lanes keep dispatching, and the lane re-warms and rejoins."""
+    _run_with_artifacts(run_device_flap_multidevice, 2)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
 def test_sim_device_flap_commit_wave_fuzz(bucket):
     for seed in range(bucket * 3, bucket * 3 + 3):
         _run_with_artifacts(run_device_flap_with_commit_wave, seed)
@@ -415,3 +1595,474 @@ def test_sim_device_flap_commit_wave_smoke():
     roots keep advancing, the ed lane stays isolated, and the healed
     engine re-admits fresh waves."""
     _run_with_artifacts(run_device_flap_with_commit_wave, 1)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
+def test_sim_crypto_host_down_fuzz(bucket):
+    for seed in range(bucket * 3, bucket * 3 + 3):
+        _run_with_artifacts(run_crypto_host_down_scenario, seed)
+
+
+def test_sim_crypto_host_down_smoke():
+    """One crypto_host_down scenario always runs in the default suite:
+    a rostered remote crypto host dies mid-consensus, only its lane's
+    breaker opens, its queued waves steal back to local lanes (never
+    double-verified), ordering holds the deadline budget, and the host
+    re-warms and rejoins."""
+    _run_with_artifacts(run_crypto_host_down_scenario, 2)
+
+
+# 100 seeds, bucketed so failures show their seed range and xdist can split
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(10))
+def test_sim_view_change_fuzz(bucket):
+    for seed in range(bucket * (N_SEEDS // 10),
+                      (bucket + 1) * (N_SEEDS // 10)):
+        _run_with_artifacts(run_scenario, seed)
+
+
+def test_sim_fuzz_deep_window():
+    """Existing scenario kinds under an AGGRESSIVELY deep pipeline:
+    size-1 batches and a watermark-wide in-flight window keep many
+    speculative uncommitted batches in flight straight through the fault,
+    so revert-on-view-change and catchup re-staging run against a deep
+    stack instead of the old 4-batch one. Seed 3 draws the primary
+    blackout (partition of the primary), seed 4 the lossy network; plus
+    one device_flap run with the crypto plane as the fault."""
+    saved = dict(FAST)
+    FAST.update(Max3PCBatchSize=1, Max3PCBatchesInFlight=300)
+    try:
+        _run_with_artifacts(run_scenario, 3)            # primary blackout
+        _run_with_artifacts(run_scenario, 4)            # lossy network
+        _run_with_artifacts(run_device_flap_scenario, 4)
+    finally:
+        FAST.clear()
+        FAST.update(saved)
+
+
+def test_sim_fuzz_smoke():
+    """One scenario of each kind always runs in the default suite."""
+    seen: set[int] = set()
+    seed = 0
+    while len(seen) < 6 and seed < 80:
+        rng = SimRandom(seed * 7919 + 17)
+        kind = rng.integer(0, 5)
+        if kind not in seen:
+            seen.add(kind)
+            _run_with_artifacts(run_scenario, seed)
+        seed += 1
+
+
+def test_fuzz_failure_artifact_includes_all_rings(tmp_path):
+    """The failure path itself: a failing rung must leave every node's
+    flight-recorder ring on disk and name the artifact dir in the
+    assertion (the acceptance shape for 'fuzz failures arrive with their
+    last-seconds story')."""
+    import glob
+    import json
+    import shutil
+
+    def failing_scenario(seed):
+        pool = _track(Pool(seed=seed, config=Config(**FAST)))
+        user = Ed25519Signer(seed=b"artifact-user".ljust(32, b"\0")[:32])
+        assert _order_and_time(pool, signed_nym(pool.trustee, user, 1), 2) \
+            is not None
+        raise AssertionError("synthetic rung failure")
+
+    with pytest.raises(AssertionError) as exc:
+        _run_with_artifacts(failing_scenario, 7)
+    msg = str(exc.value)
+    assert "flight-recorder rings of all nodes" in msg
+    art_dir = msg.rsplit(": ", 1)[1].rstrip("]")
+    try:
+        dumps = sorted(glob.glob(art_dir + "/*-flight.json"))
+        assert len(dumps) == 4, dumps          # one ring per node
+        for path in dumps:
+            with open(path) as fh:
+                snap = json.load(fh)
+            # the rings hold the pre-failure story: the ordered request's
+            # span events are there
+            stages = {e[1] for e in snap["events"]}
+            assert "ordered" in stages and "reply" in stages, \
+                (path, sorted(stages))
+    finally:
+        shutil.rmtree(art_dir, ignore_errors=True)
+
+
+# --- scenario kind `membership_churn`: the POOL ITSELF is the fault ---------
+# Live membership operations mid-load — node add (a fresh joiner catching
+# up to join), node remove (including the current primary -> forced view
+# change), BLS key rotation (stale-key commits rejected, then recovery),
+# primary demotion — over the topology-aware WAN fabric (geo3/lossy_wan
+# presets), composable with device_flap and client_flood. Runs as its own
+# seed sweep (widening run_scenario's draw would remap historical seeds).
+
+CHURN_NAMES = ["Alpha", "Beta", "Gamma", "Delta", "Eps"]
+
+
+def _order_on(pool, req, expect_size: float, nodes: list[str],
+              timeout: float = 30.0, to=None):
+    """Submit to live nodes and run until every node in `nodes` reaches
+    expect_size; -> sim seconds, or None on deadline miss."""
+    t0 = pool.timer.get_current_time()
+    live = [n for n in (to or pool.names) if n in pool.nodes]
+    pool.submit(req, to=live)
+    elapsed = 0.0
+    while elapsed < timeout:
+        pool.run(0.5)
+        elapsed += 0.5
+        if all(n in pool.nodes
+               and len(_domain_txns(pool.nodes[n])) >= expect_size
+               for n in nodes):
+            return pool.timer.get_current_time() - t0
+    return None
+
+
+def run_membership_churn_scenario(seed: int, force_rung=None,
+                                  faulted_plane=None) -> None:
+    from plenum_tpu_torch.crypto.bls import BlsCryptoSigner
+    from plenum_tpu_torch.network import make_topology
+    from test_torch_scale import signed_node_services
+
+    rng = SimRandom(seed * 32452843 + 19)
+    rung = rng.integer(0, 3) if force_rung is None else force_rung
+    # the removed-primary rung ALWAYS runs under lossy_wan (the
+    # acceptance profile); other rungs draw clean-vs-degraded WAN
+    preset = "lossy_wan" if (rung == 2 or rng.integer(0, 1) == 0) \
+        else "geo3"
+    verifier = faulted_plane[0] if faulted_plane is not None else None
+    # the join rung starts Eps demoted (it must catch up to join); every
+    # OTHER rung runs all five as validators so a demotion/removal lands
+    # at n=4, f=1 — removing a node from a 4-validator pool would leave
+    # f=0, where ANY message loss is fatal and the rung stops measuring
+    # churn and starts measuring luck
+    pool = _track(Pool(names=CHURN_NAMES,
+                       validator_names=CHURN_NAMES[:4] if rung == 0
+                       else None,
+                       seed=seed, config=Config(**FAST),
+                       verifier=verifier))
+    pool.net.set_topology(make_topology(preset, CHURN_NAMES))
+    if faulted_plane is not None:
+        sup, faulty = faulted_plane
+        sup.set_clock(pool.timer.get_current_time)
+        faulty.set_clock(pool.timer.get_current_time)
+
+    users = [Ed25519Signer(seed=(b"mc%d-%d" % (seed, i))
+                           .ljust(32, b"\0")[:32]) for i in range(4)]
+    reqs = [signed_nym(pool.trustee, u, i + 1) for i, u in enumerate(users)]
+    validators = CHURN_NAMES[:4] if rung == 0 else list(CHURN_NAMES)
+    # healthy baseline write under the drawn WAN profile
+    assert _order_on(pool, reqs[0], 2, validators) is not None, \
+        f"seed {seed}: healthy churn pool failed to order ({preset})"
+
+    if faulted_plane is not None:
+        # the crypto plane faults BEFORE the churn event: every auth /
+        # commit verdict through the churn rides the supervisor's
+        # breaker + hedged CPU fallback
+        getattr(faulted_plane[1],
+                ("wedge", "drop", "corrupt")[rng.integer(0, 2)])()
+
+    req_id = 100
+    if rung == 0:
+        # NODE ADD: Eps restarts with no memory, catches up AS A
+        # NON-VALIDATOR (the joiner bus filter), is promoted, and the
+        # 5-node pool orders everywhere
+        pool.crash_node("Eps")
+        assert _order_on(pool, reqs[1], 3, validators) is not None, \
+            f"seed {seed}: pool stalled while joiner was away"
+        pool.start_node("Eps")
+        pool.net.connect_all()
+        eps = pool.nodes["Eps"]
+        assert len(_domain_txns(eps)) == 1          # fresh from genesis
+        eps.start_catchup()
+        elapsed = 0.0
+        while elapsed < 40.0 and (eps.leecher.is_running
+                                  or len(_domain_txns(eps)) < 3):
+            pool.run(0.5)
+            elapsed += 0.5
+        assert len(_domain_txns(eps)) >= 3, \
+            f"seed {seed}: joiner catchup never completed ({preset})"
+        pool.submit(signed_node_services(pool.trustee, "Eps",
+                                         ["VALIDATOR"], req_id),
+                    to=validators)
+        pool.run(8.0)
+        assert "Eps" in pool.nodes["Alpha"].validators, \
+            f"seed {seed}: promotion never committed"
+        expect = len(_domain_txns(pool.nodes["Alpha"])) + 1
+        took = _order_on(pool, reqs[2], expect, CHURN_NAMES, timeout=40.0)
+        if took is None:
+            sizes = {n: len(_domain_txns(pool.nodes[n]))
+                     for n in CHURN_NAMES}
+            raise AssertionError(
+                f"seed {seed}: post-join pool failed to order: {sizes}")
+    elif rung == 1:
+        # NODE REMOVE (non-primary): demote AND crash a non-primary
+        # validator — the surviving 4 (f=1) keep ordering
+        primary = pool.nodes["Alpha"].master_replica.data.primary_name
+        victim = [n for n in validators if n != primary][rng.integer(0, 3)]
+        pool.submit(signed_node_services(pool.trustee, victim, [],
+                                         req_id),
+                    to=[n for n in CHURN_NAMES if n in pool.nodes])
+        pool.run(8.0)
+        survivors = [n for n in CHURN_NAMES if n != victim]
+        assert victim not in pool.nodes["Alpha"].validators, \
+            f"seed {seed}: demotion never committed"
+        pool.crash_node(victim)
+        expect = len(_domain_txns(pool.nodes["Alpha"])) + 1
+        assert _order_on(pool, reqs[2], expect, survivors,
+                         timeout=40.0) is not None, \
+            f"seed {seed}: pool stalled after node removal ({preset})"
+    elif rung == 2:
+        # REMOVE THE PRIMARY (demotion mid-load) under lossy_wan: the
+        # pool must complete a FORCED view change and order new writes
+        # within the rung deadline
+        primary = pool.nodes["Alpha"].master_replica.data.primary_name
+        view0 = pool.nodes["Alpha"].master_replica.view_no
+        pool.submit(signed_node_services(pool.trustee, primary, [],
+                                         req_id),
+                    to=validators)
+        survivors = [n for n in validators if n != primary]
+        expect = len(_domain_txns(pool.nodes["Alpha"])) + 1
+        took = _order_on(pool, reqs[2], expect, survivors, timeout=50.0)
+        assert took is not None, \
+            f"seed {seed}: no ordering after primary demotion (lossy_wan)"
+        for n in survivors:
+            node = pool.nodes[n]
+            assert primary not in node.validators, \
+                f"seed {seed}: {n} kept the demoted primary"
+            assert node.master_replica.view_no > view0, \
+                f"seed {seed}: {n} never completed the forced view change"
+    else:
+        # BLS KEY ROTATION: ledger key rotates, the node's signer stays
+        # stale (its commits must be rejected WITHOUT poisoning the
+        # batch check), then the operator re-keys and the node rejoins
+        # aggregates
+        primary = pool.nodes["Alpha"].master_replica.data.primary_name
+        victim = [n for n in validators if n != primary][rng.integer(0, 3)]
+        old_pk = BlsCryptoSigner(
+            seed=victim.encode().ljust(32, b"\0")[:32]).pk
+        new_signer = BlsCryptoSigner(
+            seed=(b"mc-rot%d-%s" % (seed, victim.encode()))
+            .ljust(32, b"\0")[:32])
+        req = Request(pool.trustee.identifier, req_id,
+                      {"type": txn_lib.NODE, "dest": f"{victim}Dest",
+                       "data": {"blskey": new_signer.pk,
+                                "blskey_pop": new_signer.generate_pop()}})
+        req.signature = pool.trustee.sign_b58(req.signing_bytes())
+        pool.submit(req, to=validators)
+        elapsed = 0.0      # NODE txns land on the POOL ledger: wait on
+        while elapsed < 30.0:   # the registry, not the domain size
+            pool.run(0.5)
+            elapsed += 0.5
+            if all(pool.nodes[n].pool_manager.bls_key_of(victim)
+                   == new_signer.pk for n in validators):
+                break
+        else:
+            raise AssertionError(
+                f"seed {seed}: rotation txn never committed")
+        # stale window: the pool keeps ordering, aggregates EXCLUDE the
+        # stale signer, no view change storms
+        expect = len(_domain_txns(pool.nodes["Alpha"])) + 1
+        assert _order_on(pool, reqs[2], expect, validators,
+                         timeout=40.0) is not None, \
+            f"seed {seed}: pool stalled during stale-key window"
+        for n in validators:
+            node = pool.nodes[n]
+            assert node.pool_manager.bls_key_of(victim) == new_signer.pk
+            assert old_pk not in \
+                node.replicas.master.bls._verifier._vk_cache, \
+                f"seed {seed}: {n} kept the rotated-out key warm"
+            if n != victim:
+                recent = list(node.replicas.master.bls
+                              ._recent_multi_sigs.values())
+                assert recent and victim not in recent[-1].participants, \
+                    f"seed {seed}: stale-key sig counted at {n}"
+        # recovery: re-key, fresh aggregates include the victim again
+        pool.nodes[victim].replicas.master.bls._signer = new_signer
+        expect += 1
+        assert _order_on(pool, reqs[3], expect, validators,
+                         timeout=40.0) is not None, \
+            f"seed {seed}: pool stalled after re-key"
+        recent = list(pool.nodes["Alpha"].replicas.master.bls
+                      ._recent_multi_sigs.values())
+        assert any(victim in m.participants for m in recent[-2:]), \
+            f"seed {seed}: re-keyed node never rejoined aggregates"
+
+    if faulted_plane is not None:
+        from plenum_tpu_torch.parallel.supervisor import CLOSED
+        sup, faulty = faulted_plane
+        st = sup.supervisor_stats()
+        assert st["fallback_batches"] >= 1, \
+            f"seed {seed}: churn under crypto fault never took CPU fallback"
+        faulty.heal()
+        waited = 0.0
+        while sup.breaker.state != CLOSED and waited < 30.0:
+            pool.run(1.0)
+            waited += 1.0
+            sup.verify_batch([(b"mc-heal-%d-%f" % (seed, waited),
+                               b"\0" * 64, b"\0" * 32)])
+        assert sup.breaker.state == CLOSED, \
+            f"seed {seed}: breaker never re-closed after churn+fault"
+        assert sup.stats["verdict_forks"] == 0
+    assert_safety(pool)
+
+
+def run_membership_churn_with_device_flap(seed: int) -> None:
+    """membership_churn composed with device_flap: the shared supervised
+    crypto plane is faulted before the churn event, so the whole churn —
+    catchup, promotion/demotion commits, the forced view change — rides
+    hedged CPU-fallback verdicts, then the plane heals and re-admits."""
+    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
+    from plenum_tpu_torch.parallel.faults import FaultyVerifier
+    from plenum_tpu_torch.parallel.supervisor import (CircuitBreaker,
+                                                DeadlineBudget,
+                                                SupervisedVerifier)
+    rng = SimRandom(seed * 86028121 + 5)
+    faulty = FaultyVerifier(CpuEd25519Verifier())
+    sup = SupervisedVerifier(
+        faulty, fallback=CpuEd25519Verifier(),
+        breaker=CircuitBreaker(fail_threshold=2,
+                               cooldown=rng.float(0.5, 1.5)),
+        budget=DeadlineBudget(base=rng.float(0.3, 0.6), min_s=0.2,
+                              warm_max=1.0, cold_max=1.0))
+    run_membership_churn_scenario(seed, faulted_plane=(sup, faulty))
+
+
+def run_membership_churn_with_client_flood(seed: int) -> None:
+    """membership_churn composed with client_flood: hot clients burst
+    through per-node ingress planes while the CURRENT PRIMARY is demoted
+    — the forced view change completes, the honest steady client's write
+    still orders, and every over-cap burst write is shed EXPLICITLY."""
+    from plenum_tpu_torch.client.sim_clients import burst_writes
+    from plenum_tpu_torch.common.node_messages import LoadShed
+    from plenum_tpu_torch.ingress import IngressPlane
+    from plenum_tpu_torch.network import make_topology
+    from test_torch_scale import signed_node_services
+
+    rng = SimRandom(seed * 49979687 + 3)
+    cap = rng.integer(2, 5)
+    config = Config(**FAST, INGRESS_CLIENT_QUEUE_CAP=cap,
+                    INGRESS_SLO_P95=0.3, INGRESS_CONTROL_INTERVAL=0.5)
+    # five validators: demoting the primary leaves n=4 (f=1) — see the
+    # base scenario's note on why removal at n=4 would measure luck
+    pool = _track(Pool(names=CHURN_NAMES, seed=seed, config=config))
+    pool.net.set_topology(make_topology("lossy_wan", pool.names))
+    ingress = {n: IngressPlane(pool.nodes[n]) for n in pool.names}
+
+    users = [Ed25519Signer(seed=(b"mcf%d-%d" % (seed, i))
+                           .ljust(32, b"\0")[:32]) for i in range(2)]
+    honest = [signed_nym(pool.trustee, u, i + 1)
+              for i, u in enumerate(users)]
+    pre = _ingress_order_and_time(pool, ingress, honest[0], 2,
+                                  timeout=30.0)
+    assert pre is not None, f"seed {seed}: healthy flood pool stalled"
+
+    # flood + primary demotion land together
+    n_hot = rng.integer(6, 16)
+    per_client = cap + rng.integer(3, 6)
+    burst = burst_writes(pool.trustee, n_hot, per_client, seed=seed)
+    for client, req in burst:
+        for n in pool.names:
+            ingress[n].submit(req.to_dict(), client)
+    primary = pool.nodes["Alpha"].master_replica.data.primary_name
+    view0 = pool.nodes["Alpha"].master_replica.view_no
+    pool.submit(signed_node_services(pool.trustee, primary, [], 400))
+    during = _ingress_order_and_time(
+        pool, ingress, honest[1],
+        len(_domain_txns(pool.nodes[pool.names[0]])) + 1, timeout=60.0)
+    assert during is not None, \
+        f"seed {seed}: honest client starved during flood+demotion"
+    survivors = [n for n in pool.names if n != primary]
+    for n in survivors:
+        assert pool.nodes[n].master_replica.view_no > view0, \
+            f"seed {seed}: {n} never view-changed under flood"
+        sheds = [m for m, _ in pool.client_msgs[n]
+                 if isinstance(m, LoadShed)]
+        assert len(sheds) >= n_hot * (per_client - cap), \
+            f"seed {seed}: sheds silent at {n}"
+    assert_safety(pool)
+
+
+MEMBERSHIP_CHURN_SEEDS = 20
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
+def test_sim_membership_churn_fuzz(bucket):
+    for seed in range(bucket * 5, (bucket + 1) * 5):
+        _run_with_artifacts(run_membership_churn_scenario, seed)
+
+
+def test_sim_membership_churn_smoke():
+    """Two rungs always run in the default suite: the acceptance rung —
+    the CURRENT PRIMARY demoted under lossy_wan, forced view change
+    completing within deadline — and the key-rotation rung (stale-key
+    commits rejected, then recovery)."""
+    _run_with_artifacts(
+        lambda seed: run_membership_churn_scenario(seed, force_rung=2), 1)
+    _run_with_artifacts(
+        lambda seed: run_membership_churn_scenario(seed, force_rung=3), 2)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(2))
+def test_sim_membership_churn_device_flap_fuzz(bucket):
+    for seed in range(bucket * 3, (bucket + 1) * 3):
+        _run_with_artifacts(run_membership_churn_with_device_flap, seed)
+
+
+def test_sim_membership_churn_device_flap_smoke():
+    _run_with_artifacts(run_membership_churn_with_device_flap, 2)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(2))
+def test_sim_membership_churn_client_flood_fuzz(bucket):
+    for seed in range(bucket * 2, (bucket + 1) * 2):
+        _run_with_artifacts(run_membership_churn_with_client_flood, seed)
+
+
+def test_sim_membership_churn_client_flood_smoke():
+    _run_with_artifacts(run_membership_churn_with_client_flood, 1)
+
+
+# --- the port against the reference, and against itself -------------------
+
+def _outcome(pool) -> dict:
+    """Every node's ordered domain txns and ledger root."""
+    return {n: (_domain_txns(node),
+                node.c.db.get_ledger(DOMAIN_LEDGER_ID).root_hash)
+            for n, node in sorted(pool.nodes.items())}
+
+
+@pytest.mark.parametrize("name,seed", [
+    ("run_scenario", 2), ("run_device_flap_multidevice", 2),
+    ("run_crypto_host_down_scenario", 2), ("run_client_flood_scenario", 2),
+    ("run_membership_churn_scenario", 2)])
+def test_scenario_orders_the_references_txns(name, seed):
+    """One seed of a rung through both packages: every node ordered the
+    same txns to the same root as the reference's node of that name."""
+    import test_sim_fuzz as ref_fuzz
+    from test_torch_pool import fresh_bls_caches
+    with fresh_bls_caches():
+        globals()[name](seed)
+        ours = _outcome(_SCENARIO_POOLS[0])
+        getattr(ref_fuzz, name)(seed)
+        theirs = _outcome(ref_fuzz._SCENARIO_POOLS[0])
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("name", ["run_device_flap_multidevice",
+                                  "run_crypto_host_down_scenario"])
+def test_scale_out_rungs_replay_identically(name):
+    """The multi-device and crypto-host-down rungs are pure functions of
+    their seed: two runs order the same txns and drive every lane alike
+    (CPU lanes stay inline, so nothing races the sim clock)."""
+    runs = []
+    for _ in range(2):
+        globals()[name](3)
+        pool = _SCENARIO_POOLS[0]
+        runs.append((_outcome(pool), pool.pipeline.device_state(),
+                     dict(pool.pipeline.stats)))
+    assert runs[0] == runs[1]

@@ -1,6 +1,7 @@
 """The port's copy of tests/test_sim_network.py, run on
-plenum_tpu_torch. The multihost case waits for the port of
-parallel/multihost.py (ROADMAP A7).
+plenum_tpu_torch. The multihost case drives the port's
+parallel/multihost.py over eight explicit CPU lanes, its mesh held to the
+reference's shape.
 
 SimNetwork determinism and fault-injection semantics
 (ref plenum/test/simulation/test_sim_network.py behavior)."""
@@ -101,6 +102,45 @@ def test_connected_events():
 # all drawn through the fabric's SimRandom so profiled runs stay replayable.
 
 from plenum_tpu_torch.network import LinkProfile, Topology, make_topology
+
+
+def test_multihost_api_single_process():
+    """init_multihost + global_mesh + shard_host_batch drive the sharded
+    crypto plane on the single-process job (8 CPU lanes here) — the same
+    call sequence a multi-host deployment uses; the mesh's shape is the
+    reference's over its 8 virtual devices, and shard_host_batch places
+    a row block of the batch on each lane, as the reference's does."""
+    import numpy as np
+    import torch
+
+    from plenum_tpu.parallel.multihost import global_mesh as ref_global_mesh
+    from plenum_tpu_torch.parallel.crypto_plane import ShardedCryptoPlane
+    from plenum_tpu_torch.parallel.multihost import (global_mesh,
+                                                     init_multihost,
+                                                     shard_host_batch)
+
+    pre = init_multihost()                 # single-process: no coordinator
+    assert set(pre) >= {"build_dir", "libraries", "warm", "stale"}
+    mesh = global_mesh(8, devices=["cpu"] * 8)
+    assert mesh.size == 8 and tuple(mesh.shape) == ("inst", "sig")
+    assert mesh.devices.shape == ref_global_mesh(8).devices.shape
+    assert mesh.local == slice(0, 8) and not mesh.in_group
+
+    arr = np.arange(8 * 4, dtype=np.int64).reshape(8, 4)
+    blocks = shard_host_batch(mesh, arr, (("inst", "sig"), None))
+    assert [tuple(b.shape) for b in blocks] == [(1, 4)] * 8
+    np.testing.assert_array_equal(torch.cat(blocks).numpy(), arr)
+    # the plane takes the placed batch as it comes: 8 leaf digests, one
+    # a lane, reduce to the root of the whole tree
+    from plenum_tpu_torch.ops.sha256 import merkle_reduce_pow2
+    leaves = np.arange(64, dtype=np.int32).reshape(8, 8)
+    plane = ShardedCryptoPlane(mesh)
+    keys = torch.zeros((1, 32), dtype=torch.uint8)
+    z = torch.zeros((2, 4, 32), dtype=torch.uint8)
+    _, root, _ = plane.step_bytes(
+        z, z, keys, torch.zeros((2, 4), dtype=torch.int32), z,
+        shard_host_batch(mesh, leaves, (("inst", "sig"), None)))
+    assert torch.equal(root, merkle_reduce_pow2(torch.from_numpy(leaves)))
 
 
 def _timed_pool(n=4, seed=7, topology=None):
