@@ -125,8 +125,8 @@ drives the port's paths on the card:
      client. G1, the tcpsvc topology: a CryptoPlaneServer in this
      process on make_verifier("cuda", supervised=True), the nodes on
      backend "service" through PLENUM_CRYPTO_SOCKET (none of them sees
-     the card), run_tcp_pool(4, 600, "service", window=300) three times
-     in turns with its twin run_tcp_pool(4, 600, "service:cpu",
+     the card), run_tcp_pool(4, 600, "service", window=300) twice
+     (three times until path I joined the script) in turns with its twin run_tcp_pool(4, 600, "service:cpu",
      window=300) (a service process on the host verifier), then once
      more under torch.profiler (the device busy time); each call in one
      spawned process, so its client shares no interpreter lock with the
@@ -192,7 +192,53 @@ drives the port's paths on the card:
      tools/micro_costs.run(4, 300), each printed on a line of its own;
      measurements, failing only if the pool did not order every txn or
      wrote no profile;
- 10. times: per kernel, the median of CUDA-event-timed launches after
+ 10. path I, shards, the autopilot and the card's tools (slice 12). I1:
+     ShardedSimFabric(n_shards=2, nodes_per_shard=4) on a QueueTimer
+     with pipeline=make_crypto_pipeline(Config(PIPELINE_DEVICES=2),
+     "cuda", supervised=True): shard s pinned to lane s of a two-lane
+     ring wrapped onto the card; after one write a shard, the ring's
+     pad buckets, cmt ladder and pin(), 1,000 trustee-signed NYMs for
+     distinct fresh DIDs (8 corrupted) through submit_write, then 60
+     GET_NYM reads through fab.read_driver (half for DIDs the other
+     shard owns), each verified by the composed check (ownership proof
+     + the shard's multi-signature). Twice, in turns with its "cpu"
+     twin (the same fabric, no ring), then once under torch.profiler
+     (the card's busy share of the profiler's whole window, settling
+     included). Each run fails unless every valid write was ordered on its owning
+     shard and nowhere else, the corrupted ones NACKed, each shard's
+     nodes agree on their domain, pool and audit roots, every read
+     verified, no shape went unpinned, every lane's supervisor routed
+     nothing off the card, and each lane dispatched after pin() with K3
+     = K4 = the lanes' waves. I2: bench_configs.config10_shards(
+     n_txns=120, backend="cuda"), the reference bench's single_8 /
+     sharded_2x4 / sharded_4x2 A/B, failing unless every arm ordered
+     all with no map-proof failure, every read served, in each of its
+     ten passes (the warm-up and three of each arm), not only the
+     medians it reports. I3: the fabric of I1 on a MockTimer with
+     AUTOPILOT=True over a hand-built ring of two unthreaded lanes (the
+     supervisors run on the sim clock), each a supervised
+     FaultyVerifier (parallel/faults.py) over a card verifier; lane 0's
+     device drops every wave until its breaker opens; fails unless the
+     autopilot re-pins shard 0 onto lane 1 (a write of shard 0 then
+     dispatched there), and, lane 0 healed, un-pins it citing the
+     re-pin outside its cooldown, the control ledger audits clean
+     (tools/control_audit) and lane 1's supervisor is clean. I4: one
+     atomic cross-shard write (fab.cross_writes()) on a MockTimer fabric
+     with no autopilot over a fresh ring from the factory, as in I1
+     (supervised card lanes, inline: PIPELINE_LANE_THREADS=False, since
+     the 2PC's steps advance sim time; the supervisors on the wall
+     clock, where the card's waves land);
+     fails unless it commits, both halves are applied, the prepare
+     record carries the read and ownership proofs and the participant's
+     check of them passes, no lane routed anything off the card, no
+     shape went unpinned, and each lane dispatched with K3 = K4 = the
+     lanes' waves. I5: tools/gpu_probe,
+     tools/gpu_microbench (2,048 and 128 signatures with the negative
+     control, K1 over 4,096 leaves) and tools/multichip --devices 4
+     (four lanes on the card, in a subprocess), each on its own line;
+     multichip fails the path if its first attempt failed (the tool
+     re-runs it after a rebuild, which here could only hide a fault);
+ 11. times: per kernel, the median of CUDA-event-timed launches after
      warm-up, its plain version's time, and its bound on this card (K3-K6,
      one quad of four threads per item, at 32, 64 and 128 threads per
      block; the interior hash at 32, 64 and 128 threads a block with
@@ -212,9 +258,12 @@ drives the port's paths on the card:
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails if a kernel of that path was never launched.
 The card's verifiers are bare (a fault raises), but for the rings of
-paths D, E, F and H and path G's service and card nodes, which are
+paths D, E, F, H and I and path G's service and card nodes, which are
 supervised as the reference pool wires them: those paths fail if the
-supervisor fell back to the CPU, hedged, or saw a device error.
+supervisor fell back to the CPU, hedged, or saw a device error (path I3
+faults lane 0 on purpose, and holds only lane 1 to it). The first line
+names the msgpack codec that ran (the C extension or the pure-Python
+one).
 Prints JSON lines (kernels, paths, device) and, last, one JSON object
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Imports nothing of JAX.
@@ -489,7 +538,7 @@ F1_TXNS, F1_RUNS = 300, 2
 F2_TXNS, F2_WINDOW, F2_RUNS = 4000, 1000, 2
 F3_BATCHES, F3_REQUESTS = 5, 1000
 G_BACKEND = "cuda"
-G1_TXNS, G1_WINDOW, G1_RUNS = 600, 300, 3
+G1_TXNS, G1_WINDOW, G1_RUNS = 600, 300, 2
 G3_TXNS, G4_NYMS = 200, 200
 H_BACKEND = "cuda"
 H_LANES, H_TXNS, H1_RUNS = 4, 300, 2
@@ -1992,6 +2041,625 @@ def scale_out_path(off_card_check, d_batch, device_window) -> dict:
     return out
 
 
+# the sizes of path I (module docstring); a rehearsal on the CPU patches
+# them smaller and I_BACKEND to "torch"
+I_BACKEND = "cuda"
+I1_WRITES, I1_BAD, I1_READS, I1_RUNS = 1000, 8, 60, 2
+I2_TXNS = 120
+I5_BATCHES, I5_SHA, I5_DEVICES, I5_SECONDS = "2048,128", 4096, 4, 3.0
+
+
+def _shard_writes(fab, n: int, n_bad: int, tag: bytes) -> tuple:
+    """n trustee-signed NYMs for distinct fresh DIDs, the n_bad of them
+    spread evenly through the list signed over other bytes -> (requests,
+    the bad ones' req_ids, each valid DID's owning shard)."""
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
+    from plenum_tpu_torch.execution.txn import NYM
+    reqs, bad, owner = [], set(), {}
+    step = n // max(1, n_bad)
+    for i in range(n):
+        user = Ed25519Signer(hashlib.sha256(tag + b"%d" % i).digest())
+        req = Request(fab.trustee.identifier, i + 1,
+                      {"type": NYM, "dest": user.identifier,
+                       "verkey": user.verkey_b58})
+        if n_bad and i % step == step // 2 and len(bad) < n_bad:
+            req.signature = fab.trustee.sign_b58(b"not this request %d" % i)
+            bad.add(req.req_id)
+        else:
+            req.signature = fab.trustee.sign_b58(req.signing_bytes())
+            owner[user.identifier] = fab.router.shard_of(req)
+        reqs.append(req)
+    return reqs, bad, owner
+
+
+def _settle_shards(fab, step, limit: float = 20.0) -> None:
+    """Drive the fabric (`step()`: one prod cycle, or one sim-time run)
+    until every shard's nodes hold domain ledgers of one size: a node
+    may apply the last batch a cycle after the first one did."""
+    t_end = time.perf_counter() + limit
+    while time.perf_counter() < t_end and any(
+            len(s.domain_sizes()) != 1 for s in fab.shards.values()):
+        step()
+
+
+def _shard_state(fab) -> dict:
+    """Per shard: its nodes' domain, pool and audit roots (equal across
+    the shard or the path fails) and the DIDs its first node ordered."""
+    from plenum_tpu_torch.execution import txn as txn_lib
+    out = {}
+    for sid, shard in sorted(fab.shards.items()):
+        roots = {name: tuple(node.c.db.get_ledger(lid).root_hash.hex()
+                             for lid in (1, 0, 3))
+                 for name, node in shard.nodes.items()}
+        if len(set(roots.values())) != 1:
+            raise AssertionError(f"shard {sid}: its nodes' domain, pool "
+                                 f"and audit roots differ: {roots}")
+        ledger = shard.nodes[shard.names[0]].c.db.get_ledger(1)
+        dests = [txn_lib.txn_data(ledger.get_by_seq_no(i)).get("dest")
+                 for i in range(2, ledger.size + 1)]
+        out[sid] = {"roots": next(iter(roots.values())), "dests": dests,
+                    "size": ledger.size}
+    return out
+
+
+def shard_path(off_card_check, device_window) -> dict:
+    """Path I (module docstring): two 4-node shards in one process, each
+    pinned to its own lane of a supervised two-lane ring (I1) with its
+    `cpu` twin, the reference bench's sharding A/B (I2), the autopilot
+    re-pinning a faulted lane's shard (I3, on a ring of two unthreaded
+    lanes whose supervisors run on the sim clock), a cross-shard write
+    (I4, on a fresh ring from the factory) and the card's tools (I5).
+    `device_window()` as in pool_runs."""
+    import random
+
+    from plenum_tpu_torch import ops
+    from plenum_tpu_torch.common.node_messages import RequestNack
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.common.timer import QueueTimer
+    from plenum_tpu_torch.config import Config
+    from plenum_tpu_torch.crypto.ed25519 import (CpuEd25519Verifier,
+                                                 Ed25519Signer,
+                                                 TorchEd25519Verifier,
+                                                 warm_up)
+    from plenum_tpu_torch.execution.txn import ATTRIB, GET_NYM, NYM
+    from plenum_tpu_torch.parallel.faults import FaultyVerifier
+    from plenum_tpu_torch.parallel.pipeline import (MultiDeviceCryptoPipeline,
+                                                    make_crypto_pipeline)
+    from plenum_tpu_torch.parallel.supervisor import (CLOSED, CircuitBreaker,
+                                                      DeadlineBudget,
+                                                      SupervisedVerifier)
+    from plenum_tpu_torch.shards import ShardedSimFabric
+    from plenum_tpu_torch.tools import (bench_configs, control_audit,
+                                        gpu_microbench, gpu_probe, multichip)
+
+    lane_type = "cuda" if I_BACKEND == "cuda" else "cpu"
+    out: dict = {"backend": I_BACKEND}
+    i_counts = {k_: 0 for k_ in ops.LAUNCHES}
+
+    def add_counts(counts: dict) -> None:
+        for k_, v in counts.items():
+            i_counts[k_] += v
+
+    def fabric_config(backend: str, **over):
+        return Config(Max3PCBatchWait=0.05, crypto_backend=backend,
+                      STATE_FRESHNESS_UPDATE_INTERVAL=600.0, **over)
+
+    def card_ring(cfg):
+        """The supervised two-lane ring, its bucket ladder covering the
+        co-hosted nodes' steady state as build_pool's does."""
+        per_node = cfg.LISTENER_MESSAGE_QUOTA + cfg.REMOTES_MESSAGE_QUOTA
+        bucket = 1
+        while bucket < 4 * per_node:
+            bucket *= 2
+        pipe = make_crypto_pipeline(cfg.replace(PIPELINE_MAX_BUCKET=max(
+            bucket, cfg.PIPELINE_MAX_BUCKET)), I_BACKEND, supervised=True)
+        if type(pipe) is not MultiDeviceCryptoPipeline or \
+                len(pipe.lanes) != 2 or \
+                {d_.split(":")[0] for d_ in _lane_devices(pipe)} != \
+                {lane_type}:
+            raise AssertionError(f"path I: not two {lane_type} lanes: "
+                                 f"{type(pipe).__name__} "
+                                 f"{_lane_devices(pipe)}")
+        return pipe
+
+    def ordered(fab) -> int:
+        return sum(s.ordered_count() for s in fab.shards.values())
+
+    def drive(fab, reqs, n_valid: int, timeout: float = 300.0) -> float:
+        """Route the writes 256 in flight, prod until n_valid more are
+        ordered -> seconds."""
+        base = ordered(fab)
+        t0 = time.perf_counter()
+        i = 0
+        while ordered(fab) - base < n_valid and \
+                time.perf_counter() < t0 + timeout:
+            while i < len(reqs) and i - (ordered(fab) - base) < 256:
+                fab.submit_write(reqs[i])
+                i += 1
+            fab.prod_all()
+            if fab.pipeline is not None:
+                fab.pipeline.flush()
+        return time.perf_counter() - t0
+
+    def i1_run(what: str, backend: str, profiled: bool = False) -> dict:
+        """One fabric (a fresh ring on the card, or the `cpu` twin with no
+        ring): warm-up, pin, I1_WRITES writes, I1_READS reads."""
+        cfg = fabric_config(backend, PIPELINE_DEVICES=2)
+        pipe = card_ring(cfg) if backend != "cpu" else None
+        fab = ShardedSimFabric(
+            n_shards=2, nodes_per_shard=4, seed=11,
+            timer=QueueTimer(time.perf_counter), config=cfg,
+            pipeline=pipe, latency=(0.00005, 0.0002))
+        if pipe is not None:
+            if fab.lane_pins != {0: 0, 1: 1}:
+                raise AssertionError(f"{what}: shards pinned {fab.lane_pins}")
+            for sid, shard in fab.shards.items():
+                lanes = {n.c.authenticator.core_authenticator.verifier.lane
+                         for n in shard.nodes.values()}
+                if lanes != {sid}:
+                    raise AssertionError(f"{what}: shard {sid}'s nodes "
+                                         f"submit to lanes {lanes}")
+        # warm-up: one write a shard end to end, then the ring's pad
+        # buckets and cmt ladder, then pin (run_load's contract)
+        warm, _, _ = _shard_writes(fab, 16, 0, b"i1-warm-")
+        warm_by = {}
+        for r_ in warm:
+            warm_by.setdefault(fab.router.shard_of(r_), r_)
+        drive(fab, list(warm_by.values()), len(warm_by), 120.0)
+        if pipe is not None:
+            pipe.prewarm(pipe.buckets[:2])
+            pipe.prewarm_cmt([1, 2, 4, 8])
+            pipe.pin()
+            lane0 = [d_["dispatches"] for d_ in pipe.device_state()]
+            st0 = dict(pipe.stats)
+            rep0 = pipe.inflight_repeats
+        reqs, bad, owner = _shard_writes(fab, I1_WRITES, I1_BAD,
+                                         b"i1-%s-" % what.encode())
+        for sid, shard in fab.shards.items():
+            for n in shard.names:
+                shard.client_msgs[n].clear()
+        sizes0 = {sid: s.ordered_count() for sid, s in fab.shards.items()}
+        ops.reset_counts()
+        window = device_window() if profiled else None
+        t_w = time.perf_counter()
+        secs = drive(fab, reqs, len(owner))
+        # the NACKs may trail the last ordered batch by a prod or two
+        def nacked() -> set:
+            return {m.req_id for s in fab.shards.values() for n in s.names
+                    for m, _ in s.client_msgs[n]
+                    if isinstance(m, RequestNack)}
+
+        t_nack = time.perf_counter() + 10.0
+        while time.perf_counter() < t_nack and not bad <= nacked():
+            fab.prod_all()
+        _settle_shards(fab, fab.prod_all)
+        # the share is of the profiler's whole window: the drive, the
+        # NACKs' tail and the settling
+        window_s = time.perf_counter() - t_w
+        busy = window.stop() if window is not None else None
+        counts = dict(ops.LAUNCHES)
+        state = _shard_state(fab)
+        per_shard = {sid: st["size"] - 1 - sizes0[sid]
+                     for sid, st in state.items()}
+        # every valid write ordered on its owning shard and nowhere else
+        for sid, st in state.items():
+            want = {d for d, s_ in owner.items() if s_ == sid}
+            got = set(st["dests"])
+            if not want <= got or len(st["dests"]) != len(set(st["dests"])):
+                raise AssertionError(f"{what}: shard {sid} is missing "
+                                     f"{len(want - got)} of its writes or "
+                                     f"ordered one twice")
+            foreign = {d for d in got if d in owner and owner[d] != sid}
+            if foreign:
+                raise AssertionError(f"{what}: shard {sid} ordered "
+                                     f"{len(foreign)} writes it does not "
+                                     f"own")
+        if sum(per_shard.values()) != len(owner):
+            raise AssertionError(f"{what}: {sum(per_shard.values())} "
+                                 f"ordered, {len(owner)} valid writes")
+        bad_dests = {r_.operation["dest"] for r_ in reqs if r_.req_id in bad}
+        if any(d in bad_dests for st in state.values() for d in st["dests"]):
+            raise AssertionError(f"{what}: a corrupted write was ordered")
+        nacks = nacked()
+        if not bad <= nacks:
+            raise AssertionError(f"{what}: {len(bad - nacks)} corrupted "
+                                 f"writes were not NACKed")
+        run = {"seconds": secs, "writes": len(reqs),
+               "valid": len(owner), "nacked": len(bad & nacks),
+               "tps": len(owner) / secs,
+               "per_shard_ordered": per_shard,
+               "per_shard_tps": {sid: n_ / secs
+                                 for sid, n_ in per_shard.items()},
+               "launches": counts}
+        if pipe is not None:
+            if pipe.stats["unpinned_shapes"] != st0["unpinned_shapes"]:
+                raise AssertionError(f"{what}: unpinned shapes")
+            lanes = pipe.device_state()
+            lane_disp = [d_["dispatches"] - n_ for d_, n_ in
+                         zip(lanes, lane0)]
+            for k_, lane in enumerate(pipe.lanes):
+                off_card_check(f"{what} lane {k_}", lane.inner)
+            if min(lane_disp) < 1 or \
+                    counts["ed25519_decompress"] != \
+                    counts["ed25519_verify"] or \
+                    counts["ed25519_verify"] != sum(lane_disp):
+                raise AssertionError(
+                    f"{what}: K3 {counts['ed25519_decompress']}, K4 "
+                    f"{counts['ed25519_verify']} against lane dispatches "
+                    f"{lane_disp}")
+            submitted = pipe.stats["submitted_items"] - \
+                st0["submitted_items"]
+            # the ring dedups against its cache and within a wave (ROADMAP
+            # C): every dispatch beyond one a signature must repeat one
+            # that sat in a wave not yet resolved
+            beyond = pipe.stats["dispatched_items"] \
+                - st0["dispatched_items"] - len(reqs)
+            if beyond != pipe.inflight_repeats - rep0:
+                raise AssertionError(
+                    f"{what}: {beyond} dispatches beyond one a signature, "
+                    f"{pipe.inflight_repeats - rep0} of them repeats of "
+                    f"unresolved waves")
+            run.update({
+                "lane_dispatches_timed": lane_disp,
+                "lane_items_timed": [
+                    d_["dispatched_items"] for d_ in lanes],
+                "lanes": lanes, "lane_devices": _lane_devices(pipe),
+                "dedup_ratio": (pipe.stats["dedup_hits"]
+                                - st0["dedup_hits"]) / submitted
+                if submitted else None,
+                "dispatched_beyond_unique_signatures": beyond,
+                "inflight_repeats": pipe.inflight_repeats - rep0,
+                "pad_items": pipe.stats["pad_items"] - st0["pad_items"]})
+            if busy is not None:
+                busy_ms, by_name = busy
+                run.update({"device_busy_ms": busy_ms,
+                            "device_ms_by_name": by_name,
+                            "window_s": window_s,
+                            "device_busy_share": busy_ms / (window_s * 1e3)
+                            if isinstance(busy_ms, float) else busy_ms})
+        # cross-shard reads: half of them for DIDs shard 1 owns, read by
+        # a client homed on shard 0; each through the composed check
+        def pump(seconds):
+            t_end = time.perf_counter() + seconds
+            while time.perf_counter() < t_end:
+                fab.prod_all()
+                if fab.pipeline is not None:
+                    fab.pipeline.flush()
+
+        driver = fab.read_driver(pump=pump)
+        by_shard = {0: [], 1: []}
+        for d, s_ in sorted(owner.items()):
+            by_shard[s_].append(d)
+        keys = {d: r_.operation["verkey"] for r_ in reqs
+                for d in (r_.operation["dest"],) if d in owner}
+        t_r = time.perf_counter()
+        for j in range(I1_READS):
+            pool_ = by_shard[1] if j % 2 else by_shard[0]
+            dest = pool_[j // 2 % len(pool_)]
+            q = Request("i1-reader", j + 1, {"type": GET_NYM, "dest": dest})
+            res = driver.read(q, per_node_s=2.0, step_s=0.001)
+            if res is None or res["data"]["verkey"] != keys[dest]:
+                raise AssertionError(f"{what}: read {j} of {dest} did not "
+                                     f"verify: {driver.stats.summary()}")
+        s_ = driver.stats.summary()
+        if s_["map_proof_failures"] or s_["fallbacks"] or \
+                s_["cross_reads"] < I1_READS // 2:
+            raise AssertionError(f"{what}: reads {s_}")
+        run["reads"] = {"served": I1_READS,
+                        "owned_by_the_other_shard": I1_READS // 2,
+                        "composed_checks": s_["cross_reads"],
+                        "seconds": time.perf_counter() - t_r,
+                        "verify_ms_p50": s_.get("verify_ms_p50"),
+                        "verify_ms_p95": s_.get("verify_ms_p95")}
+        run["roots"] = {sid: st["roots"] for sid, st in state.items()}
+        if pipe is not None:
+            pipe.close()
+        return run
+
+    # --- I1: two shards, each on its own lane, in turns with the twin ----
+    t_i = time.perf_counter()
+    dev_runs, cpu_runs = [], []
+    for i in range(I1_RUNS):       # in turns: drift on the host hits both
+        dev_runs.append(i1_run(f"path I1 run {i}", I_BACKEND))
+        add_counts(dev_runs[-1]["launches"])
+        cpu_runs.append(i1_run(f"path I1 twin {i}", "cpu"))
+        if cpu_runs[-1]["launches"]["ed25519_verify"]:
+            raise AssertionError("path I1 twin: launched a kernel")
+    profiled = i1_run("path I1 under torch.profiler", I_BACKEND,
+                      profiled=True)
+    med = statistics.median(d_["tps"] for d_ in dev_runs)
+    med_cpu = statistics.median(c_["tps"] for c_ in cpu_runs)
+    out["I1"] = {"writes": I1_WRITES, "corrupted": I1_BAD,
+                 "reads": I1_READS, "runs": dev_runs, "cpu_twin": cpu_runs,
+                 "tps_median": med, "cpu_tps_median": med_cpu,
+                 "tps_ratio_to_cpu": med / med_cpu,
+                 "under_torch_profiler": profiled,
+                 "seconds": time.perf_counter() - t_i}
+
+    # --- I2: the reference bench's sharding A/B on the card -------------
+    # every pass the bench makes (its warm-up and the three runs of each
+    # arm) is checked, not only the median it reports
+    t_2 = time.perf_counter()
+    ops.reset_counts()
+    arm_once = bench_configs._sharded_arm_once
+    passes: list = []
+
+    def checked_arm(*args, **kw):
+        passes.append(arm_once(*args, **kw))
+        return passes[-1]
+
+    bench_configs._sharded_arm_once = checked_arm
+    try:
+        ab = bench_configs.config10_shards(n_txns=I2_TXNS, backend=I_BACKEND)
+    finally:
+        bench_configs._sharded_arm_once = arm_once
+    add_counts(ops.LAUNCHES)
+    if "error" in ab or len(passes) != 10:
+        raise AssertionError(f"path I2: {len(passes)} passes, {ab}")
+    for j, p_ in enumerate(passes):
+        if p_.get("txns_ordered") != p_.get("txns_requested") or \
+                p_.get("map_proof_failures") or p_.get("reads_served") != 60:
+            raise AssertionError(f"path I2: pass {j} of 10 ({p_.get('shards')}"
+                                 f" shards): {p_}")
+    out["I2"] = {"n_txns": I2_TXNS,
+                 **{k_: {f: ab[k_][f] for f in (
+                     "aggregate_tps", "per_shard_tps", "reads_per_s",
+                     "cross_shard_served", "cross_verify_ms_p50")}
+                    for k_ in ("single_8", "sharded_2x4", "sharded_4x2")},
+                 "speedup_2x4": ab["speedup_2x4"],
+                 "speedup_4x2": ab["speedup_4x2"],
+                 "launches": {k_: ops.LAUNCHES[k_] for k_ in (
+                     "ed25519_decompress", "ed25519_verify")},
+                 "seconds": time.perf_counter() - t_2}
+
+    # --- I3: the autopilot re-pins a faulted lane's shard ----------------
+    t_3 = time.perf_counter()
+    ops.reset_counts()
+    cfg = fabric_config(I_BACKEND, PIPELINE_DEVICES=2, AUTOPILOT=True,
+                        AUTOPILOT_INTERVAL=0.5, AUTOPILOT_SUSTAIN=2,
+                        AUTOPILOT_RECOVER_SUSTAIN=3, AUTOPILOT_COOLDOWN=6.0,
+                        RESHARD_COOLDOWN=6.0, TELEMETRY_INTERVAL=0.5,
+                        SLO_BURN_FAST_WINDOW=2.0, SLO_BURN_SLOW_WINDOW=6.0)
+    faulties, sups = [], []
+    for k_ in range(2):
+        inner = TorchEd25519Verifier(device=lane_type)
+        if lane_type == "cuda":
+            warm_up(inner)
+        faulty = FaultyVerifier(inner, device_index=k_)
+        faulties.append(faulty)
+        sups.append(SupervisedVerifier(
+            faulty, fallback=CpuEd25519Verifier(),
+            breaker=CircuitBreaker(fail_threshold=2, cooldown=1.0),
+            budget=DeadlineBudget(base=2.0, min_s=1.0, warm_max=5.0,
+                                  cold_max=5.0),
+            label=f"lane{k_}"))
+    pipe3 = MultiDeviceCryptoPipeline(ed_inners=sups, config=cfg,
+                                      threaded=False)
+    fab3 = ShardedSimFabric(n_shards=2, nodes_per_shard=4, seed=3,
+                            config=cfg, pipeline=pipe3)
+    for obj in (*sups, *faulties):
+        obj.set_clock(fab3.timer.get_current_time)
+    ap = fab3.autopilot
+    if ap is None or fab3.lane_pins != {0: 0, 1: 1}:
+        raise AssertionError(f"path I3: autopilot {ap}, pins "
+                             f"{fab3.lane_pins}")
+    rnd = random.Random(12)
+
+    def junk(n: int):
+        return [(rnd.randbytes(16), rnd.randbytes(63) + b"\x00",
+                 rnd.randbytes(32)) for _ in range(n)]
+
+    def write_on(fab, sid: int, tag: bytes, req_id: int):
+        for j in range(400):
+            u = Ed25519Signer(hashlib.sha256(tag + b"%d" % j).digest())
+            req = Request(fab.trustee.identifier, req_id,
+                          {"type": NYM, "dest": u.identifier,
+                           "verkey": u.verkey_b58})
+            if fab.router.shard_of(req) == sid:
+                req.signature = fab.trustee.sign_b58(req.signing_bytes())
+                return u, req
+        raise AssertionError(f"path I: no DID for shard {sid}")
+
+    def order(fab, sid: int, req, limit: float = 30.0) -> None:
+        before = fab.shards[sid].ordered_count()
+        if fab.submit_write(req) != sid:
+            raise AssertionError(f"path I: write routed off shard {sid}")
+        waited = 0.0
+        while waited < limit and fab.shards[sid].ordered_count() <= before:
+            fab.run(0.5)
+            waited += 0.5
+        if fab.shards[sid].ordered_count() <= before:
+            raise AssertionError(f"path I: shard {sid} did not order")
+
+    # both shards order on their own lanes first
+    order(fab3, 0, write_on(fab3, 0, b"i3-a", 1)[1])
+    order(fab3, 1, write_on(fab3, 1, b"i3-b", 2)[1])
+    faulties[0].drop()                 # lane 0's device refuses every wave
+    waited = 0.0
+    while waited < 40.0 and not any(r_.action == "repin"
+                                    for r_ in ap.ledger.records):
+        pipe3.verifier(lane=0).verify_batch(junk(3))
+        fab3.run(0.5)
+        waited += 0.5
+    repins = [r_ for r_ in ap.ledger.records if r_.action == "repin"]
+    if not repins or fab3.lane_pins[0] != 1 or \
+            repins[0].evidence.get("sick_lane") != 0:
+        raise AssertionError(f"path I3: no re-pin of shard 0 onto lane 1 "
+                             f"(breaker {sups[0].breaker.state}, pins "
+                             f"{fab3.lane_pins}, {ap.summary()})")
+    repin_sim_s = fab3.timer.get_current_time()
+    # shard 0 orders through lane 1 while lane 0 is dark
+    lane1_before = pipe3.lanes[1].stats["dispatches"]
+    order(fab3, 0, write_on(fab3, 0, b"i3-c", 3)[1])
+    lane1_shard0 = pipe3.lanes[1].stats["dispatches"] - lane1_before
+    if lane1_shard0 < 1:
+        raise AssertionError("path I3: shard 0's write never reached "
+                             "lane 1")
+    faulties[0].heal()
+    waited = 0.0
+    while waited < 60.0 and not any(r_.action == "unpin"
+                                    for r_ in ap.ledger.records):
+        if sups[0].breaker.state != CLOSED:
+            pipe3.verifier(lane=0).verify_batch(junk(3))
+        fab3.run(0.5)
+        waited += 0.5
+    unpins = [r_ for r_ in ap.ledger.records if r_.action == "unpin"]
+    if not unpins or fab3.lane_pins[0] != 0 or \
+            unpins[0].cites != repins[0].seq or \
+            unpins[0].t < repins[0].cooldown_until:
+        raise AssertionError(f"path I3: shard 0 not un-pinned with a "
+                             f"citation ({fab3.lane_pins}, {ap.summary()})")
+    records = ap.ledger.to_dicts()
+    problems = control_audit.audit_records(records)
+    if problems:
+        raise AssertionError(f"path I3: the control ledger failed its "
+                             f"audit: {problems}")
+    off_card_check("path I3 lane 1", sups[1])
+    if pipe3.stats["unpinned_shapes"]:
+        raise AssertionError("path I3: unpinned shapes")
+    lane0 = sups[0].stats
+    i3_counts = dict(ops.LAUNCHES)
+    add_counts(i3_counts)
+    _require_launched_ed("path I3", i3_counts)
+    out["I3"] = {
+        "repin": repins[0].to_dict(), "unpin": unpins[0].to_dict(),
+        "repin_sim_s": repin_sim_s, "records": len(records),
+        "actions": [r_["action"] for r_ in records if r_["action"] != "hold"],
+        "holds": sum(1 for r_ in records if r_["action"] == "hold"),
+        "audit_problems": problems,
+        "replay": control_audit.replay(records),
+        "lane1_dispatches_for_shard0": lane1_shard0,
+        "lane0_supervisor": {k_: lane0[k_] for k_ in (
+            "fallback_batches", "device_errors", "open_circuit_fallbacks")},
+        "lane0_breaker_opens": sups[0].supervisor_stats()["breaker_opens"],
+        "lane_dispatches": [d_["dispatches"] for d_ in
+                            pipe3.device_state()],
+        "mapping_epoch": fab3.mapping.epoch, "shards": sorted(fab3.shards),
+        "launches": i3_counts, "seconds": time.perf_counter() - t_3}
+
+    # --- I4: one atomic cross-shard write on the card fabric -------------
+    # a fresh ring from the factory (I1's supervised card lanes) under a
+    # fabric with no autopilot (a reshard between the 2PC's begin and its
+    # prepare would abort it on a stale epoch, as it must). The 2PC's
+    # blocking steps advance the fabric's MockTimer, so the lanes
+    # dispatch inline (PIPELINE_LANE_THREADS=False, the config's switch
+    # for sims): a threaded lane resolves in real time while sim time
+    # runs on, and the prepare's sim-time deadline passes. Each Node puts
+    # the ring on the fabric's clock; the lanes' supervisors go back to
+    # the wall clock, since the card's waves land in real time (on sim
+    # time a wave in flight over a few sim steps reads as a deadline
+    # miss and is hedged on the CPU)
+    pipe3.close()
+    t_4 = time.perf_counter()
+    cfg4 = fabric_config(I_BACKEND, PIPELINE_DEVICES=2,
+                         PIPELINE_LANE_THREADS=False)
+    pipe4 = card_ring(cfg4)
+    fab4 = ShardedSimFabric(n_shards=2, nodes_per_shard=4, seed=5,
+                            config=cfg4, pipeline=pipe4)
+    for lane in pipe4.lanes:
+        lane.inner.set_clock(time.monotonic)
+    if fab4.lane_pins != {0: 0, 1: 1}:
+        raise AssertionError(f"path I4: shards pinned {fab4.lane_pins}")
+    pipe4.prewarm(pipe4.buckets[:2])
+    pipe4.prewarm_cmt([1, 2, 4, 8])
+    pipe4.pin()
+    lane4 = [d_["dispatches"] for d_ in pipe4.device_state()]
+    ops.reset_counts()
+    dep, dep_req = write_on(fab4, 1, b"i4-dep", 1)
+    order(fab4, 1, dep_req)
+    xsw = fab4.cross_writes()
+    home, _ = write_on(fab4, 0, b"i4-home", 9)
+    txid = xsw.begin(
+        0, 1, {"type": NYM, "dest": home.identifier,
+               "verkey": home.verkey_b58},
+        {"type": GET_NYM, "dest": dep.identifier},
+        {"type": ATTRIB, "dest": dep.identifier,
+         "raw": json.dumps({"linked": home.identifier})})
+    state_ = xsw.drive(txid)
+    recs = xsw._scan_records(0).get(txid, {})
+    prep = recs.get("prepare") or {}
+    witness_ok = xsw.participant(1)._check_witness(
+        prep.get("intent") or {}, prep.get("witness"))
+    from plenum_tpu_torch.execution import txn as txn_lib
+
+    def applied(sid: int, kind: str, did: str) -> bool:
+        node = fab4.shards[sid].nodes[fab4.shards[sid].names[0]]
+        ledger = node.c.db.get_ledger(1)
+        return any(txn_lib.txn_type_of(ledger.get_by_seq_no(i)) == kind
+                   and txn_lib.txn_data(ledger.get_by_seq_no(i))
+                   .get("dest") == did
+                   and (kind == NYM or "linked" in (txn_lib.txn_data(
+                       ledger.get_by_seq_no(i)).get("raw") or ""))
+                   for i in range(2, ledger.size + 1))
+
+    halves = (applied(0, NYM, home.identifier),
+              applied(1, ATTRIB, dep.identifier))
+    result = (prep.get("witness") or {}).get("result") or {}
+    if state_ != "committed" or not all(halves) or \
+            witness_ok != (True, "ok") or "read_proof" not in result or \
+            "shard_proof" not in result or \
+            recs.get("decision", {}).get("decision") != "commit" or \
+            xsw.participant(1).locks:
+        raise AssertionError(f"path I4: {state_}, halves {halves}, witness "
+                             f"{witness_ok}, {xsw.summary()}")
+    _settle_shards(fab4, lambda: fab4.run(0.5))
+    _shard_state(fab4)                 # each shard's nodes still agree
+    i4_counts = dict(ops.LAUNCHES)
+    add_counts(i4_counts)
+    for k_, lane in enumerate(pipe4.lanes):
+        off_card_check(f"path I4 lane {k_}", lane.inner)
+    if pipe4.stats["unpinned_shapes"]:
+        raise AssertionError("path I4: unpinned shapes")
+    lane_disp4 = [d_["dispatches"] - n_ for d_, n_ in
+                  zip(pipe4.device_state(), lane4)]
+    if min(lane_disp4) < 1 or i4_counts["ed25519_decompress"] != \
+            i4_counts["ed25519_verify"] or \
+            i4_counts["ed25519_verify"] != sum(lane_disp4):
+        raise AssertionError(
+            f"path I4: K3 {i4_counts['ed25519_decompress']}, K4 "
+            f"{i4_counts['ed25519_verify']} against lane dispatches "
+            f"{lane_disp4}")
+    out["I4"] = {"txid": txid, "state": state_, "halves_applied": halves,
+                 "witness": witness_ok, "summary": xsw.summary(),
+                 "lane_dispatches": lane_disp4, "launches": i4_counts,
+                 "seconds": time.perf_counter() - t_4}
+    pipe4.close()
+
+    # --- I5: the card's tools --------------------------------------------
+    t_5 = time.perf_counter()
+    probe = gpu_probe.probe_gpu()
+    print(json.dumps({"gpu_probe": probe}), flush=True)
+    if I_BACKEND == "cuda" and not probe["up"]:
+        raise AssertionError(f"path I5: gpu_probe says the card is down: "
+                             f"{probe}")
+    ops.reset_counts()
+    rc = gpu_microbench.main(["--backend", I_BACKEND, "--batches",
+                              I5_BATCHES, "--sha-batch", str(I5_SHA),
+                              "--skip-probe"])
+    add_counts(ops.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"path I5: gpu_microbench exited {rc}")
+    row = multichip.run_harness(I5_DEVICES, seconds=I5_SECONDS,
+                                timeout=600.0, backend=I_BACKEND)
+    print(json.dumps({"multichip": row}), flush=True)
+    # the tool re-runs a failed first attempt after a rebuild, for its
+    # operators; here the kernels were just built from this checkout, so
+    # a retry can only hide a fault of the first attempt
+    source = "cuda" if I_BACKEND == "cuda" else "torch-cpu"
+    if not row["ok"] or row["n_devices"] != I5_DEVICES or \
+            len(row["per_device_dispatches"]) != I5_DEVICES or \
+            row.get("torch_source") != source or "first_attempt" in row:
+        raise AssertionError(f"path I5: multichip (first attempt "
+                             f"{row.get('first_attempt')}): {row}")
+    out["I5"] = {"gpu_probe_up": probe["up"],
+                 "multichip_torch_source": row["torch_source"],
+                 "multichip_items_per_s": row["flood_items_per_s"],
+                 "seconds": time.perf_counter() - t_5}
+    out["launches"] = i_counts
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2001,6 +2669,7 @@ def main() -> int:
     import numpy as np
 
     from plenum_tpu_torch import graft_entry, ops
+    from plenum_tpu_torch.common import serialization
     from plenum_tpu_torch.common.request import Request
     from plenum_tpu_torch.common.serialization import pack
     from plenum_tpu_torch.config import Config
@@ -2029,7 +2698,8 @@ def main() -> int:
     t_start = time.perf_counter()
     print(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
                       "cuda": torch.version.cuda,
-                      "gpu": torch.cuda.get_device_name(0)}))
+                      "gpu": torch.cuda.get_device_name(0),
+                      "msgpack_codec": serialization.CODEC}))
 
     # --- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2962,6 +3632,18 @@ def main() -> int:
     scale["path_s"] = time.perf_counter() - t_h
     print(json.dumps({"scale_out_path": scale}))
 
+    # --- path I: shards pinned to their own lanes, the autopilot, the
+    # card's tools (slice 12)
+    t_i = time.perf_counter()
+    ops.reset_counts()
+    shard = shard_path(require_nothing_off_card, DeviceWindow)
+    shard_counts = shard["launches"]
+    require_launched("shards", shard_counts,
+                     ("ed25519_decompress", "ed25519_verify",
+                      "sha256_words"))
+    shard["path_s"] = time.perf_counter() - t_i
+    print(json.dumps({"shard_path": shard}))
+
     # --- phase 3: times at the slice's shapes ------------------------------
     # the 1,000-request batch's own inputs
     _, (s_u8, h_u8, k_u8, idx_m, r_u8) = verifier.stage_bytes(auth_items)
@@ -3139,7 +3821,8 @@ def main() -> int:
                    "probe": probe_counts, "ring": ring_counts,
                    "ring_sharded": ring_sharded_counts,
                    "replica": replica_counts, "pool": pool_counts,
-                   "tcp": tcp_counts, "scale_out": scale_counts}
+                   "tcp": tcp_counts, "scale_out": scale_counts,
+                   "shards": shard_counts}
     path_of = {"K1": "slice", "K2": "slice", "K2T": "slice", "K2L": "slice",
                "K3": "pool",
                "K4": "pool", "K5": "sharded", "K6": "sharded",
@@ -3278,6 +3961,8 @@ def main() -> int:
             "launches_per_multilane_h1_run":
                 scale["H1"]["runs"][0]["launches"][name],
             "launches_h2_local_lane": scale["H2"]["launches_local_lane"][name],
+            "launches_per_shard_i1_run":
+                shard["I1"]["runs"][0]["launches"][name],
             "launches_h2_remote_service_k3_k4":
                 scale["H2"]["service_dispatches_remote_k3_k4"]
                 if name in ("ed25519_decompress", "ed25519_verify") else None,

@@ -4,18 +4,30 @@ Reference behavior: plenum/common/serializers/serialization.py — msgpack for t
 ledger/txn log and the wire, canonical JSON (sorted keys, no whitespace) for
 anything that gets signed, so signatures are reproducible across nodes.
 
-The msgpack codec here is pure Python (`packb`/`unpackb`), used on every
-host, so the port needs no `msgpack` package. It covers the types the
-package serializes — dict, list/tuple, str, bytes, int, bool, None,
-float — and `packb` is byte-identical to `msgpack.packb(obj,
-use_bin_type=True)`: ledger leaves are these bytes, so a single differing
-byte would change every Merkle root.
+`packb`/`unpackb` (and `pack`/`unpack` over them) call the `msgpack`
+package when it imports, as the reference does, and otherwise the
+pure-Python codec here (`pure_packb`/`pure_unpackb`), so the port runs on
+a host without `msgpack`. `CODEC` names the one in use. The pure codec
+covers the types the package serializes — dict, list/tuple, str, bytes,
+int, bool, None, float — and `pure_packb` is byte-identical to
+`msgpack.packb(obj, use_bin_type=True)`: ledger leaves are these bytes,
+so a single differing byte would change every Merkle root.
+`pure_unpackb` raises msgpack's error types on malformed input
+(ValueError and its `FormatError`/`ExtraData` subclasses).
 """
 from __future__ import annotations
 
 import json
 import struct
 from typing import Any
+
+
+class FormatError(ValueError):
+    """An invalid msgpack head byte (msgpack.exceptions.FormatError)."""
+
+
+class ExtraData(ValueError):
+    """Bytes left after one object (msgpack.exceptions.ExtraData)."""
 
 
 def _pack_into(obj: Any, out: bytearray) -> None:
@@ -100,7 +112,7 @@ def _pack_into(obj: Any, out: bytearray) -> None:
         raise TypeError(f"can not serialize {type(obj).__name__!r} object")
 
 
-def packb(obj: Any) -> bytes:
+def pure_packb(obj: Any) -> bytes:
     """msgpack encoding of obj in its own map order, as
     `msgpack.packb(obj, use_bin_type=True)` gives it."""
     out = bytearray()
@@ -149,6 +161,8 @@ def _unpack_at(data: bytes, pos: int) -> tuple[Any, int]:
             raise ValueError("truncated msgpack data")
         n = int.from_bytes(data[pos:pos + size], "big")
         pos += size
+    elif code == 0xC1:
+        raise FormatError("msgpack head byte 0xc1 is never used")
     else:
         raise ValueError(f"unsupported msgpack type 0x{code:02x}")
     if kind in ("str", "bin"):
@@ -170,14 +184,35 @@ def _unpack_at(data: bytes, pos: int) -> tuple[Any, int]:
     return out, pos
 
 
-def unpackb(data: bytes) -> Any:
-    """Inverse of packb, as `msgpack.unpackb(data, raw=False,
+def pure_unpackb(data: bytes) -> Any:
+    """Inverse of pure_packb, as `msgpack.unpackb(data, raw=False,
     strict_map_key=False)` reads it: arrays come back as lists."""
     data = bytes(data)
     obj, pos = _unpack_at(data, 0)
     if pos != len(data):
-        raise ValueError("extra data after msgpack object")
+        raise ExtraData("unpack(b) received extra data.")
     return obj
+
+
+try:
+    import msgpack as _msgpack
+except ImportError:
+    _msgpack = None
+
+if _msgpack is not None:
+    CODEC = ("msgpack-c" if _msgpack.Packer.__module__.endswith("_cmsgpack")
+             else "msgpack-python")
+
+    def packb(obj: Any) -> bytes:
+        """msgpack encoding of obj in its own map order."""
+        return _msgpack.packb(obj, use_bin_type=True)
+
+    def unpackb(data: bytes) -> Any:
+        """Inverse of packb: arrays come back as lists."""
+        return _msgpack.unpackb(data, raw=False, strict_map_key=False)
+else:
+    CODEC = "pure-python"
+    packb, unpackb = pure_packb, pure_unpackb
 
 
 def pack(obj: Any) -> bytes:

@@ -314,7 +314,8 @@ class ObserverFleet:
         obs = SimObserver(
             name, shard.genesis, shard.names, pool_bls_keys(shard.names),
             now=self.fabric.timer.get_current_time, f=self.f,
-            anchor_lag_max=None)
+            anchor_lag_max=None,
+            crypto_backend=self.fabric.config.crypto_backend)
         obs.register(lambda v, msg: shard.nodes[v]
                      .handle_client_message(msg, obs.client_id))
         self.regions[region].append(obs)

@@ -25,6 +25,7 @@ COPIES = [
     "common/stashing.py", "common/suspicion_codes.py", "common/timer.py",
     "common/tracing.py",
     "config.py",
+    "control/__init__.py", "control/autopilot.py",
     "consensus/__init__.py", "consensus/batch_controller.py",
     "consensus/batch_executor.py", "consensus/batch_id.py",
     "consensus/bls_bft_replica.py", "consensus/checkpoint_service.py",
@@ -60,6 +61,9 @@ COPIES = [
     "plugins.py",
     "reads/__init__.py", "reads/client.py", "reads/edge.py",
     "reads/plane.py", "reads/proofs.py",
+    "shards/__init__.py", "shards/cross_write.py", "shards/fabric.py",
+    "shards/mapping.py", "shards/read_client.py", "shards/reshard.py",
+    "shards/router.py",
     "state/__init__.py", "state/native_codec.py", "state/pruning_state.py",
     "state/rlp.py", "state/trie.py",
     "state/commitment/__init__.py", "state/commitment/base.py",
@@ -68,7 +72,8 @@ COPIES = [
     "storage/__init__.py", "storage/kv_chunked.py", "storage/kv_file.py",
     "storage/kv_memory.py", "storage/kv_native.py", "storage/kv_store.py",
     "storage/state_ts_store.py",
-    "tools/__init__.py", "tools/churn_soak.py", "tools/fleet_console.py",
+    "tools/__init__.py", "tools/churn_soak.py", "tools/control_audit.py",
+    "tools/fleet_console.py",
     "tools/fuzz_lint.py", "tools/genesis.py", "tools/keygen.py",
     "tools/log_analyzer.py", "tools/metrics_lint.py",
     "tools/metrics_report.py", "tools/micro_costs.py",
@@ -146,7 +151,11 @@ UNDONE = {
          'asked for\n    "cpu" or "torch".\n', ""),
         (',\n                 crypto_backend: str = "cuda"):', "):"),
         ("genesis_txns=genesis, crypto_backend=crypto_backend,",
-         "genesis_txns=genesis,")],
+         "genesis_txns=genesis,"),
+        # a fleet's observers run on its fabric's backend
+        ("            anchor_lag_max=None,\n"
+         "            crypto_backend=self.fabric.config.crypto_backend)",
+         "            anchor_lag_max=None)")],
     "node/observer_node.py": [
         ('\ncrypto_backend names the components\' hasher and verifier '
          'backend, the\ncard ("cuda") unless asked for "cpu" or "torch".\n',
@@ -445,3 +454,91 @@ def test_multidevice_ring_and_crypto_host_roster_are_the_references():
     assert _defs("plenum_tpu_torch", "parallel/multihost.py")[
         "crypto_host_roster"] == _defs("plenum_tpu", "parallel/multihost.py")[
         "crypto_host_roster"]
+
+
+class _CpuArms(ast.NodeTransformer):
+    """Undo bench_configs' backend parameter: the `backend` argument goes,
+    its uses read the reference's "cpu", and the keywords that only pass
+    it along (crypto_backend=..., and backend=... to the module's own
+    helpers) go."""
+    HELPERS = {"_sim25_once", "_sharded_arm_once", "_telemetry_hot_shard_arm"}
+
+    def visit_FunctionDef(self, node):
+        self.generic_visit(node)
+        args = node.args
+        names = [a.arg for a in args.args]
+        if "backend" in names:
+            i = names.index("backend")
+            assert i == len(names) - 1
+            args.args.pop()
+            args.defaults.pop()
+        return node
+
+    def visit_Name(self, node):
+        if node.id == "backend":
+            return ast.copy_location(ast.Constant("cpu"), node)
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        callee = getattr(node.func, "id", getattr(node.func, "attr", ""))
+        node.keywords = [
+            k for k in node.keywords
+            if not (k.arg == "crypto_backend"
+                    or (k.arg == "backend" and callee in self.HELPERS))]
+        return node
+
+
+# bench_configs' device A/Bs run the port's lanes in their subprocess
+# (no jax.config, no XLA flags), config4's nodes take --backend, and the
+# three helpers below are the port's own (ROADMAP C)
+BENCH_REWRITTEN = {
+    "config4_viewchange_under_load", "_pipeline_ab_inproc",
+    "config8_pipeline_ab", "_multichip_ab_inproc", "config14_multichip",
+    "_federation_ab_inproc", "config17_federation",
+    "_ordered_path_ab_inproc", "config16_ordered_path", "config19_edge"}
+BENCH_HELPERS = ["_torch_source", "_child_env", "_lanes_on"]
+
+
+def test_bench_configs_differ_only_in_backend_and_lanes():
+    """tools/bench_configs.py is the reference's with a `backend`
+    parameter (default "cuda") on every config that builds a pool: with
+    it undone (the reference's "cpu" in its place) each such function is
+    the reference's, statement for statement. The device A/Bs, config4
+    and config19 (its provenance key) are rewritten for the port's lanes
+    and named here; every one of them takes `backend`, default "cuda"."""
+    rel = "tools/bench_configs.py"
+    src = _source("plenum_tpu_torch", rel).replace(
+        "plenum_tpu_torch", "plenum_tpu").replace(
+        "the SAME 4-node write load with the",
+        "the SAME 4-node cpu write load with the")
+    port = ast.parse(src)
+    ref = ast.parse(_source("plenum_tpu", rel))
+    port_defs = {n.name: n for n in port.body
+                 if isinstance(n, ast.FunctionDef)}
+    ref_defs = {n.name: n for n in ref.body if isinstance(n, ast.FunctionDef)}
+    assert [n for n in port_defs if n not in BENCH_HELPERS] == list(ref_defs)
+    assert BENCH_REWRITTEN <= set(ref_defs)
+    for name, node in port_defs.items():
+        if name in BENCH_HELPERS:
+            continue
+        params = {a.arg: d for a, d in zip(
+            node.args.args[-len(node.args.defaults):], node.args.defaults)} \
+            if node.args.defaults else {}
+        if name in ("_mixed_requests", "_drive_inprocess",
+                    "_host_calib_ms", "main"):
+            assert "backend" not in params, name
+        else:
+            assert ast.literal_eval(params["backend"]) == "cuda", name
+        if name in BENCH_REWRITTEN:
+            continue
+        ours = ast.dump(_CpuArms().visit(node))
+        if name == "config13_commitment":
+            # its arms are the commitment schemes (the reference calls
+            # them `backend`)
+            ours = ours.replace("'scheme'", "'backend'")
+        assert ours == ast.dump(ref_defs[name]), name
+    assert [ast.dump(n) for n in port.body[1:]
+            if not isinstance(n, ast.FunctionDef)] == \
+        [ast.dump(n) for n in ref.body[1:]
+         if not isinstance(n, ast.FunctionDef)]

@@ -1,6 +1,5 @@
 """The port's copy of tests/test_edge.py, run on plenum_tpu_torch (nodes on
-the CPU). The autopilot's observer-spawn hold waits for control/
-(ROADMAP A8).
+the CPU).
 
 Proof CDN edge tier (reads/edge.py, docs/edge.md).
 
@@ -284,6 +283,60 @@ def test_aggregator_edge_hit_rate_window():
     ed = agg.edge
     assert ed["regions"]["r0"]["served"] == 300
     assert ed["bytes"] == 2000
+
+
+def test_autopilot_edge_absorb_holds_observer_spawn():
+    """With sustained read burn, the observer policy SPAWNS — unless the
+    region's edges already absorb the reads (hit-rate at the configured
+    bar), in which case it HOLDS with the rate as ledger evidence."""
+    from test_torch_pool import CpuConfig as Config
+    from plenum_tpu_torch.control.autopilot import Autopilot
+    from plenum_tpu_torch.observability import FleetAggregator
+
+    class _Fleet:
+        def __init__(self):
+            self.regions = {"r0": [object()]}
+            self.spawned = []
+            self._last_served = {}
+            self.capacity = 64.0
+
+        def count(self, region):
+            return len(self.regions[region]) + len(self.spawned)
+
+        def spawn(self, region):
+            self.spawned.append(region)
+            return f"{region}-obs{len(self.spawned) + 1}"
+
+        def scale_in_safe(self, region):
+            return False
+
+    class _Fabric:
+        config = Config(AUTOPILOT=True)
+        metrics = MetricsCollector()
+        fabric_tracer = None
+
+        def __init__(self):
+            self.aggregator = FleetAggregator(config=self.config)
+            self.observers = _Fleet()
+
+    fab = _Fabric()
+    ap = Autopilot(fab)
+    agg = fab.aggregator
+    agg._streaks[("slo_burn.reads", "r0")] = ap._sustain  # sustained burn
+    agg.note_edge("r0", hits=99, served=100, edges=3, now=1.0)
+    ap._policy_observers(1.0)
+    assert fab.observers.spawned == [], "spawned despite edge absorption"
+    holds = [r for r in ap.ledger.records if r.action == "hold"]
+    assert holds and holds[-1].evidence.get("edge_absorbing") is True
+    assert abs(holds[-1].evidence["edge_hit_rate"] - 0.99) < 1e-9
+    # the edges stop absorbing: the SAME sustained burn now spawns, and
+    # the (sub-bar) hit rate still rides the action's evidence
+    agg.note_edge("r0", hits=0, served=900, edges=3, now=2.0)
+    ap._policy_observers(2.0)
+    assert fab.observers.spawned == ["r0"]
+    spawn = [r for r in ap.ledger.records
+             if r.action == "observer_spawn"][-1]
+    assert spawn.evidence["edge_hit_rate"] < 0.95
 
 
 @pytest.mark.parametrize("name", [

@@ -26,15 +26,17 @@ def test_fuzz_suite_smoke_coverage():
     assert out["check"] == "ok", out["problems"]
     assert out["scenarios"] >= 10        # the kinds this repo has grown
     assert out["smoke_covered"] == out["scenarios"]
-    # the federated ring's kind (the reference asserts its reshard kind
-    # here, which waits for shards/)
+    # the reshard kind introduced with live split/merge is registered
+    assert "run_reshard_fuzz_scenario" in out["kinds"]
+    # the federated ring's kind
     assert "run_crypto_host_down_scenario" in out["kinds"]
     # the Proof-CDN kind (a lying edge cache can deny, never forge)
     assert "run_lying_edge_scenario" in out["kinds"]
-    # every ported kind is the reference suite's, with the same smoke rungs
+    # every kind of the reference suite is ported, with the same smoke
+    # rungs
     ref = ref_lint()["kinds"]
     assert {k: v["smoke"] for k, v in out["kinds"].items()} == \
-        {k: ref[k]["smoke"] for k in out["kinds"]}
+        {k: v["smoke"] for k, v in ref.items()}
 
 
 def test_fuzz_lint_catches_sweep_only_kind(tmp_path):

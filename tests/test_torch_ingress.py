@@ -1,9 +1,9 @@
 """The port's copy of tests/test_ingress.py, run on plenum_tpu_torch
 (sim pools and the in-process observer on the `cpu` backend), and the
 ingress plane's batched admission on a `torch` pool, where it reaches
-the kernels' plain K3 + K4 through the node's own authenticator. The
-reference's bench configuration (config7, slow) waits for the port's
-tools/ (ROADMAP A8).
+the kernels' plain K3 + K4 through the node's own authenticator, and
+the reference's bench configuration config7 (slow) on the `cpu`
+backend.
 
 Ingress plane: admission control, fair queueing, batched auth, and
 observer read fan-out (docs/ingress.md).
@@ -543,6 +543,29 @@ def test_observer_anchor_lag_escalates_to_validator():
     assert s.observer_escalations == 1 and s.observer_ok == 0
     assert s.failovers == 1 and s.fallbacks == 0
     assert obs.gate.stats["stale_suppressed"] == 1
+
+
+# --- the full 10k bench config, shrunk (slow) -----------------------------
+
+@pytest.mark.slow
+def test_bench_config7_ingress_end_to_end():
+    """The acceptance bench config end to end at reduced scale: batched
+    auth measured >> 1, observer-served verified reads, and the overload
+    A/B (bounded+shedding vs unbounded inbox)."""
+    from plenum_tpu_torch.tools.bench_configs import config7_ingress_10k
+    out = config7_ingress_10k(n_clients=10_000, n_ops=300,
+                              burst_clients=40, burst_per_client=6,
+                              timeout=120.0, backend="cpu")
+    assert "error" not in out, out
+    assert out["reads_served"] > 0
+    assert out["observer_served"] == out["reads_served"]
+    assert out["writes_ordered"] == out["writes_submitted"]
+    assert out["auth_batch_mean"] is not None
+    ab = out["overload_ab"]
+    assert ab["ingress"]["bounded"]
+    assert ab["ingress"]["shed"] > 0
+    assert ab["no_ingress"]["inbox_depth_after_burst"] == ab["no_ingress"]["burst"]
+    assert ab["ingress"]["queue_depth_peak"] <= ab["ingress"]["watermark"]
 
 
 # --- the plain K3 + K4 behind admission ------------------------------------

@@ -86,7 +86,19 @@ def test_every_module_imports_with_jax_and_reference_blocked():
             "plenum_tpu_torch.tools.perf_budget",
             "plenum_tpu_torch.parallel.federation",
             "plenum_tpu_torch.parallel.multihost",
-            "plenum_tpu_torch.parallel.pipeline"} <= set(mods)
+            "plenum_tpu_torch.parallel.pipeline",
+            "plenum_tpu_torch.shards", "plenum_tpu_torch.shards.mapping",
+            "plenum_tpu_torch.shards.router",
+            "plenum_tpu_torch.shards.read_client",
+            "plenum_tpu_torch.shards.reshard",
+            "plenum_tpu_torch.shards.cross_write",
+            "plenum_tpu_torch.shards.fabric", "plenum_tpu_torch.control",
+            "plenum_tpu_torch.control.autopilot",
+            "plenum_tpu_torch.tools.control_audit",
+            "plenum_tpu_torch.tools.bench_configs",
+            "plenum_tpu_torch.tools.gpu_probe",
+            "plenum_tpu_torch.tools.gpu_microbench",
+            "plenum_tpu_torch.tools.multichip"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _BLOCKER, *mods], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)

@@ -3,9 +3,10 @@ with every node's crypto on the CPU: the base view-change scenario, the
 device-flap rungs (per node, through the shared ring, per lane of the
 multi-device ring, on the commit-wave lane), the crypto-host-down rung of
 the federated ring, the lying reader (MPT and Verkle), the client flood,
-the lying edge and membership churn. The cross-shard, reshard,
-directory-rotation and autopilot rungs wait for shards/ and control/
-(ROADMAP A8). tools/fuzz_lint.py reads this file.
+the lying edge, membership churn, and over the shard fabric the
+cross-shard, reshard (with its 2PC, device-flap and client-flood
+variants), directory-rotation and autopilot rungs. tools/fuzz_lint.py
+reads this file.
 
 Seeded randomized view-change fuzzing over the deterministic SimNetwork.
 
@@ -2025,6 +2026,1232 @@ def test_sim_membership_churn_client_flood_fuzz(bucket):
 
 def test_sim_membership_churn_client_flood_smoke():
     _run_with_artifacts(run_membership_churn_with_client_flood, 1)
+
+
+def _fabric_outcome(fab) -> dict:
+    """Every live shard node's ordered txns and root, the mapping root
+    and epoch, and the autopilot's control-ledger records."""
+    ap = getattr(fab, "autopilot", None)
+    return {"nodes": _outcome(fab), "map": (fab.mapping.root_hex,
+                                            fab.mapping.epoch),
+            "control": ap.ledger.to_dicts() if ap is not None else None}
+
+
+def _held_smoke(scenario, seed: int, **kw) -> None:
+    """A fabric smoke call, then the same call on the reference's suite:
+    every shard node ordered the same txns to the same root as the
+    reference's node of that name, under the same mapping root, and the
+    autopilot wrote the same control-ledger records."""
+    import test_sim_fuzz as ref_fuzz
+    from test_torch_pool import fresh_bls_caches
+    ours = []
+
+    def run(s):
+        scenario(s, **kw)
+        ours.append(_fabric_outcome(_SCENARIO_POOLS[0]))
+
+    with fresh_bls_caches():
+        _run_with_artifacts(run, seed)
+        getattr(ref_fuzz, scenario.__name__)(seed, **kw)
+        theirs = _fabric_outcome(ref_fuzz._SCENARIO_POOLS[0])
+    assert ours == [theirs]
+
+
+# --- scenario kind `cross_shard`: the SHARD BOUNDARY is under attack --------
+# Over the 2-shard ShardedSimFabric (plenum_tpu_torch/shards/): tamper rungs —
+# a forged mapping proof, a wrong-shard answer, a stale map served after
+# a resharding — must every one fail CLOSED at the composed cross-shard
+# check; confinement rungs — a partition or a device_flap landing on ONE
+# shard — must never stall the other shard's ordering or its verified
+# cross-shard reads. Runs as its own seed sweep (the existing kinds keep
+# their historical seeds).
+
+
+def _shard_sizes(shard, names=None) -> set[int]:
+    return {shard.nodes[n].c.db.get_ledger(DOMAIN_LEDGER_ID).size
+            for n in (names or shard.names)}
+
+
+def _fab_order_and_time(fab, shard, req, expect: int, names=None,
+                        timeout: float = 25.0):
+    """Route through the fabric and run until every node in `names` of
+    `shard` reaches ledger size `expect`; -> sim seconds, or None."""
+    t0 = fab.timer.get_current_time()
+    assert fab.submit_write(req) == shard.shard_id
+    elapsed = 0.0
+    while elapsed < timeout:
+        fab.run(0.5)
+        elapsed += 0.5
+        if _shard_sizes(shard, names) == {expect}:
+            return fab.timer.get_current_time() - t0
+    return None
+
+
+def run_cross_shard_fuzz_scenario(seed: int, force_rung=None) -> None:
+    from plenum_tpu_torch.execution.txn import GET_NYM
+    from plenum_tpu_torch.shards import (MappingLedger, ShardDescriptor,
+                                   ShardReadGate, ShardedSimFabric)
+    from plenum_tpu_torch.shards.mapping import directory_bls_signers
+    from test_torch_shards import LyingGate, signed_write, user_on_shard
+
+    rng = SimRandom(seed * 15485863 + 29)
+    rung = rng.integer(0, 4) if force_rung is None else force_rung
+
+    sup = faulty = None
+    shard_verifiers = None
+    flap_sid = rng.integer(0, 1)
+    if rung == 4:
+        # the crypto plane of ONE shard is the fault: that shard's four
+        # nodes share a supervised faulty device, the other shard's
+        # plane is untouched
+        from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
+        from plenum_tpu_torch.parallel.faults import FaultyVerifier
+        from plenum_tpu_torch.parallel.supervisor import (CircuitBreaker,
+                                                    DeadlineBudget,
+                                                    SupervisedVerifier)
+        faulty = FaultyVerifier(CpuEd25519Verifier())
+        sup = SupervisedVerifier(
+            faulty, fallback=CpuEd25519Verifier(),
+            breaker=CircuitBreaker(fail_threshold=2,
+                                   cooldown=rng.float(0.5, 1.5)),
+            budget=DeadlineBudget(base=rng.float(0.3, 0.6), min_s=0.2,
+                                  warm_max=1.0, cold_max=1.0))
+        shard_verifiers = {flap_sid: sup}
+
+    fab = _track(ShardedSimFabric(n_shards=2, nodes_per_shard=4, seed=seed,
+                                  config=Config(**FAST),
+                                  shard_verifiers=shard_verifiers))
+    if sup is not None:
+        sup.set_clock(fab.timer.get_current_time)
+        faulty.set_clock(fab.timer.get_current_time)
+
+    # seed one owned write per shard; both shards order independently
+    users = {sid: user_on_shard(fab, sid, b"xsf%d-" % seed)
+             for sid in fab.shards}
+    for req_id, (sid, u) in enumerate(sorted(users.items()), start=1):
+        assert fab.submit_write(signed_write(fab, u, req_id)) == sid
+    elapsed = 0.0
+    while elapsed < 25.0 and any(_shard_sizes(s) != {2}
+                                 for s in fab.shards.values()):
+        fab.run(0.5)
+        elapsed += 0.5
+    for sid, shard in fab.shards.items():
+        assert _shard_sizes(shard) == {2}, \
+            f"seed {seed}: shard {sid} never ordered its seed write"
+
+    victim_sid = rng.integer(0, 1)       # the shard the tamper targets
+    victim = users[victim_sid]
+    q = Request("xsf", 50, {"type": GET_NYM, "dest": victim.identifier})
+
+    if rung == 0:
+        # FORGED MAPPING PROOF: every node of the owning shard cites a
+        # map signed by a non-directory committee — each ladder rung must
+        # reject fail-closed; after the gate heals, the SAME driver
+        # verifies again
+        evil = MappingLedger(
+            [ShardDescriptor.from_dict(d.to_dict())
+             for d in fab.mapping.descriptors],
+            directory_bls_signers([f"Ev{i}-{seed}" for i in range(4)]),
+            now=fab.timer.get_current_time)
+
+        def forge(result, key):
+            result["shard_proof"] = evil.ownership_proof(key)
+            return result
+
+        fab.gates[victim_sid] = LyingGate(fab.gates[victim_sid], forge)
+        driver = fab.read_driver()
+        res = driver.read(q, per_node_s=1.0, step_s=0.1)
+        s = driver.stats.summary()
+        assert res is None and s["fallbacks"] == 1, \
+            f"seed {seed}: forged map accepted ({s})"
+        assert s["map_proof_failures"] >= 1 and \
+            s["map_failure_reasons"].get("bad_map_multi_sig", 0) >= 1, \
+            f"seed {seed}: wrong rejection reason ({s})"
+        fab.gates[victim_sid] = fab.gates[victim_sid].inner
+        res = driver.read(Request("xsf", 51, dict(q.operation)),
+                          per_node_s=2.0, step_s=0.1)
+        assert res is not None and \
+            res["data"]["verkey"] == victim.verkey_b58, \
+            f"seed {seed}: healed gate still rejected"
+    elif rung == 1:
+        # WRONG-SHARD ANSWER: a foreign-shard node serves a valid-looking
+        # absence envelope against ITS root — the composed check rejects
+        # it and the ladder fails over INTO the owning shard
+        other_sid = 1 - victim_sid
+        wrong = fab.shards[other_sid].names[rng.integer(0, 3)]
+        driver = fab.read_driver()
+        res = driver.read(q, per_node_s=2.0, step_s=0.1,
+                          order=[wrong] + list(fab.shards[victim_sid].names))
+        s = driver.stats.summary()
+        assert res is not None and \
+            res["data"]["verkey"] == victim.verkey_b58, \
+            f"seed {seed}: wrong-shard ladder never recovered ({s})"
+        assert s["verify_failures"] >= 1 and s["failovers"] >= 1 and \
+            s["fallbacks"] == 0, f"seed {seed}: wrong-shard accepted ({s})"
+    elif rung == 2:
+        # STALE MAP AFTER RESHARDING: the owning shard's gate keeps
+        # serving the epoch-0 map after the directory publishes epoch 1 —
+        # a client whose view saw epoch 1 must fail closed, then verify
+        # once the gate refreshes
+        stale_ml = MappingLedger(
+            [ShardDescriptor.from_dict(d.to_dict())
+             for d in fab.mapping.descriptors],
+            fab.directory, now=fab.timer.get_current_time)
+        fab.gates[victim_sid] = ShardReadGate(stale_ml)
+        fab.mapping.reshard([ShardDescriptor.from_dict(d.to_dict())
+                             for d in fab.mapping.descriptors])
+        driver = fab.read_driver()           # view is at epoch 1
+        res = driver.read(q, per_node_s=1.0, step_s=0.1)
+        s = driver.stats.summary()
+        assert res is None and s["fallbacks"] == 1, \
+            f"seed {seed}: stale map accepted ({s})"
+        assert s["map_failure_reasons"].get("stale_map", 0) >= 1, \
+            f"seed {seed}: wrong stale rejection ({s})"
+        fab.gates[victim_sid] = ShardReadGate(fab.mapping)
+        res = driver.read(Request("xsf", 52, dict(q.operation)),
+                          per_node_s=2.0, step_s=0.1)
+        assert res is not None, f"seed {seed}: refreshed gate rejected"
+    elif rung == 3:
+        # PARTITION CONFINED TO ONE SHARD: blackout the victim shard's
+        # primary on ITS OWN SimNetwork; the other shard must keep
+        # ordering within its healthy latency AND keep answering verified
+        # cross-shard reads while the victim is mid-view-change; the
+        # victim's survivors then view-change and recover on their own
+        other_sid = 1 - victim_sid
+        vshard, oshard = fab.shards[victim_sid], fab.shards[other_sid]
+        primary = vshard.nodes[vshard.names[0]] \
+            .master_replica.data.primary_name
+        vshard.net.add_rule(Discard(), match_dst(primary))
+        vshard.net.add_rule(Discard(), match_frm(primary))
+        survivors = [n for n in vshard.names if n != primary]
+        # a write pending on the victim shard across its view change
+        pend = user_on_shard(fab, victim_sid, b"pend%d-" % seed)
+        fab.router.route(signed_write(fab, pend, 60), "xsf")
+        # ...must not slow the OTHER shard below healthy ordering
+        u2 = user_on_shard(fab, other_sid, b"live%d-" % seed, start=50)
+        took = _fab_order_and_time(fab, oshard, signed_write(fab, u2, 61),
+                                   3, timeout=10.0)
+        assert took is not None, \
+            f"seed {seed}: healthy shard stalled by foreign partition"
+        driver = fab.read_driver()
+        q2 = Request("xsf", 62, {"type": GET_NYM,
+                                 "dest": users[other_sid].identifier})
+        res = driver.read(q2, per_node_s=2.0, step_s=0.1)
+        assert res is not None and driver.stats.summary()["fallbacks"] == 0, \
+            f"seed {seed}: cross-shard read starved by foreign partition"
+        fab.run(25.0)                        # victim view-changes and heals
+        for n in survivors:
+            assert vshard.nodes[n].master_replica.view_no >= 1, \
+                f"seed {seed}: {n} stuck in view 0 behind the partition"
+        assert _shard_sizes(vshard, survivors) == {3}, \
+            f"seed {seed}: victim survivors lost the pending write"
+    else:
+        # DEVICE_FLAP CONFINED TO ONE SHARD: wedge/drop/corrupt the
+        # faulted shard's shared device MID-TRAFFIC; that shard degrades
+        # to hedged CPU fallback and keeps ordering, the OTHER shard's
+        # plane never even notices; heal re-closes the breaker
+        kind = ("wedge", "drop", "corrupt")[rng.integer(0, 2)]
+        assert sup.stats["device_batches"] >= 1, \
+            f"seed {seed}: seed traffic never hit the faulted shard device"
+        getattr(faulty, kind)()
+        fshard = fab.shards[flap_sid]
+        oshard = fab.shards[1 - flap_sid]
+        uf = user_on_shard(fab, flap_sid, b"flap%d-" % seed, start=100)
+        uo = user_on_shard(fab, 1 - flap_sid, b"calm%d-" % seed, start=100)
+        t_other = _fab_order_and_time(fab, oshard,
+                                      signed_write(fab, uo, 70), 3,
+                                      timeout=10.0)
+        assert t_other is not None, \
+            f"seed {seed}: un-faulted shard stalled by foreign {kind}"
+        t_fault = _fab_order_and_time(fab, fshard,
+                                      signed_write(fab, uf, 71), 3)
+        assert t_fault is not None, \
+            f"seed {seed}: faulted shard stopped ordering under {kind}"
+        st = sup.supervisor_stats()
+        assert st["fallback_batches"] >= 1, \
+            f"seed {seed}: no CPU fallback under {kind}"
+        assert st["max_stall_s"] <= st["max_budget_s"] + 0.3, \
+            f"seed {seed}: stall past deadline budget"
+        from plenum_tpu_torch.parallel.supervisor import CLOSED
+        faulty.heal()
+        waited = 0.0
+        while sup.breaker.state != CLOSED and waited < 30.0:
+            fab.run(1.0)
+            waited += 1.0
+            sup.verify_batch([(b"xsf-heal-%d-%f" % (seed, waited),
+                               b"\0" * 64, b"\0" * 32)])
+        assert sup.breaker.state == CLOSED, \
+            f"seed {seed}: shard breaker never re-closed after {kind}"
+        assert sup.stats["verdict_forks"] == 0
+
+    for shard in fab.shards.values():        # no fork inside any shard
+        assert_safety(shard)
+
+
+CROSS_SHARD_SEEDS = 20
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
+def test_sim_cross_shard_fuzz(bucket):
+    for seed in range(bucket * 5, (bucket + 1) * 5):
+        _run_with_artifacts(run_cross_shard_fuzz_scenario, seed)
+
+
+def test_sim_cross_shard_smoke():
+    """Two rungs always run in the default suite: one tamper rung (the
+    forged mapping proof, failing closed end to end) and one confinement
+    rung (a partition landing on one shard leaving the other's ordering
+    and cross-shard reads untouched)."""
+    _held_smoke(run_cross_shard_fuzz_scenario, 1, force_rung=0)
+    _held_smoke(run_cross_shard_fuzz_scenario, 2, force_rung=3)
+
+
+# --- scenario kind `reshard`: the SHARD MAP ITSELF is in motion -------------
+# Live split/merge (shards/reshard.py) and proof-carrying cross-shard
+# writes (shards/cross_write.py) under fire: every admitted write across
+# a migration must be ordered EXACTLY ONCE (no drop, no duplicate),
+# every stale-epoch or partitioned cross-shard write must fail closed
+# with ZERO half-commits, and a coordinator crash between prepare and
+# commit must never lose atomicity. Composes with partition (rung 2),
+# the ratchet race (rung 3), the 2PC fault matrix (rungs 4/5), and
+# device_flap / client_flood via the run_reshard_with_* runners.
+
+
+def _reshard_fabric(seed: int, shard_verifiers=None):
+    from plenum_tpu_torch.shards import ShardedSimFabric
+    return _track(ShardedSimFabric(
+        n_shards=2, nodes_per_shard=4, seed=seed, config=Config(**FAST),
+        shard_verifiers=shard_verifiers))
+
+
+def _drive_migration(fab, m, timeout: float = 90.0) -> None:
+    elapsed = 0.0
+    while elapsed < timeout and m.phase not in ("done", "aborted"):
+        fab.run(0.5)
+        elapsed += 0.5
+
+
+def _owner_sid(fab, req) -> int:
+    return fab.router.shard_of(req)
+
+
+def _assert_exactly_once(fab, seed: int, writes) -> None:
+    """Every admitted write is ordered exactly once at its CURRENT
+    owner (post-migration map), and nowhere gains a duplicate."""
+    from plenum_tpu_torch.execution import txn as txn_lib
+    from plenum_tpu_torch.execution.txn import NYM
+    ledger_dests: dict[int, list] = {}
+    for sid, shard in fab.shards.items():
+        node = next(iter(shard.nodes.values()))
+        ledger = node.c.db.get_ledger(DOMAIN_LEDGER_ID)
+        # NYM creations only: 2PC records are ATTRIBs that legitimately
+        # repeat their shard's anchor DID
+        ledger_dests[sid] = [
+            txn_lib.txn_data(ledger.get_by_seq_no(i)).get("dest")
+            for i in range(2, ledger.size + 1)
+            if txn_lib.txn_type_of(ledger.get_by_seq_no(i)) == NYM]
+    for sid, dests in ledger_dests.items():
+        dup = [d for d in set(dests) if dests.count(d) > 1]
+        assert not dup, f"seed {seed}: duplicates on shard {sid}: {dup}"
+    for user, req in writes:
+        owner = _owner_sid(fab, req)
+        assert owner is not None, f"seed {seed}: write lost from the map"
+        assert user.identifier in ledger_dests[owner], \
+            (f"seed {seed}: write {user.identifier[:8]} missing at its "
+             f"owner {owner} ({ {s: len(d) for s, d in ledger_dests.items()} })")
+
+
+def run_reshard_fuzz_scenario(seed: int, force_rung=None,
+                              faulted_plane=None) -> None:
+    from plenum_tpu_torch.execution.txn import GET_NYM
+    from test_torch_shards import signed_write, user_on_shard
+
+    rng = SimRandom(seed * 49979693 + 41)
+    rung = rng.integer(0, 5) if force_rung is None else force_rung
+
+    shard_verifiers = None
+    if faulted_plane is not None:
+        shard_verifiers = {0: faulted_plane[0]}   # the SOURCE shard's plane
+    fab = _reshard_fabric(seed, shard_verifiers=shard_verifiers)
+    if faulted_plane is not None:
+        sup, faulty = faulted_plane
+        sup.set_clock(fab.timer.get_current_time)
+        faulty.set_clock(fab.timer.get_current_time)
+
+    # zipfian-shaped seed load: most writes key into shard 0 (the hot
+    # range a split relieves), a trickle into shard 1
+    writes = []
+    rid = 0
+    n_hot = 4 + rng.integer(0, 2)
+    for k in range(n_hot):
+        u = user_on_shard(fab, 0, b"rs%d-" % seed, start=k * 17)
+        rid += 1
+        writes.append((u, signed_write(fab, u, rid)))
+    u_cold = user_on_shard(fab, 1, b"rc%d-" % seed)
+    rid += 1
+    writes.append((u_cold, signed_write(fab, u_cold, rid)))
+    for _u, req in writes:
+        assert fab.submit_write(req) is not None
+    elapsed = 0.0
+    while elapsed < 30.0 and any(
+            s.ordered_count() < 1 for s in fab.shards.values()):
+        fab.run(0.5)
+        elapsed += 0.5
+    assert fab.shards[0].ordered_count() >= n_hot, \
+        f"seed {seed}: hot shard never ordered its seed load"
+
+    if faulted_plane is not None:
+        # the source shard's crypto plane faults BEFORE the split: the
+        # whole migration (copy replays, handoff) rides the supervisor's
+        # breaker + hedged CPU fallback
+        getattr(faulted_plane[1],
+                ("wedge", "drop", "corrupt")[rng.integer(0, 2)])()
+
+    if rung == 0:
+        # HEALTHY SPLIT UNDER TRAFFIC: the hot range splits onto a new
+        # sub-pool while writes keep flowing; exactly-once everywhere,
+        # epoch ratchets, a stale-view reader refreshes instead of
+        # erroring
+        stale_driver = fab.read_driver()          # view predates the split
+        m = fab.reshard.split(0)
+        for k in range(3):                        # mid-migration traffic
+            u = user_on_shard(fab, 0, b"rm%d-" % seed, start=k * 23)
+            rid += 1
+            req = signed_write(fab, u, rid)
+            writes.append((u, req))
+            assert fab.submit_write(req) is not None
+        _drive_migration(fab, m)
+        assert m.phase == "done", \
+            f"seed {seed}: migration stuck: {m.to_dict()}"
+        assert fab.mapping.epoch == 1 and len(fab.shards) == 3
+        _assert_exactly_once(fab, seed, writes)
+        moved = next((u for u, req in writes if _owner_sid(fab, req) == 2),
+                     None)
+        assert moved is not None, f"seed {seed}: split moved nothing"
+        q = Request("rr", 900, {"type": GET_NYM, "dest": moved.identifier})
+        res = stale_driver.read(q, per_node_s=1.5, step_s=0.1)
+        s = stale_driver.stats.summary()
+        assert res is not None and \
+            res["data"]["verkey"] == moved.verkey_b58, \
+            f"seed {seed}: stale-view read errored during healthy reshard {s}"
+        assert s.get("map_retries", 0) == 1 and s["fallbacks"] == 0, s
+    elif rung == 1:
+        # LIVE MERGE: shard 1's whole range folds into shard 0 under
+        # traffic; the source retires, its data verifies at the survivor
+        m = fab.reshard.merge(1, 0)
+        _drive_migration(fab, m)
+        assert m.phase == "done", \
+            f"seed {seed}: merge stuck: {m.to_dict()}"
+        assert fab.mapping.epoch == 1 and sorted(fab.shards) == [0]
+        _assert_exactly_once(fab, seed, writes)
+        driver = fab.read_driver()
+        q = Request("rr", 901, {"type": GET_NYM,
+                                "dest": u_cold.identifier})
+        res = driver.read(q, per_node_s=2.0, step_s=0.1)
+        assert res is not None and \
+            res["data"]["verkey"] == u_cold.verkey_b58, \
+            f"seed {seed}: merged-away data unreadable at the survivor"
+        assert not any(n.startswith("S1N") for n in fab.aggregator.latest)
+    elif rung == 2:
+        # RESHARD MID-PARTITION: the split target's primary is cut off
+        # mid-copy — the migration must NOT ratchet while the copy
+        # cannot complete (source keeps ownership, no write lost), then
+        # complete after the heal + the target's own view change
+        m = fab.reshard.split(0)
+        tshard = fab.shards[m.target]
+        primary = tshard.nodes[tshard.names[0]] \
+            .master_replica.data.primary_name
+        rules = [tshard.net.add_rule(Discard(), match_dst(primary)),
+                 tshard.net.add_rule(Discard(), match_frm(primary))]
+        fab.run(rng.float(3.0, 6.0))
+        # the fail-closed coupling: the epoch ratchets IFF the copy
+        # completed (the target's survivors may legitimately view-change
+        # around their cut primary and finish early — but a ratchet with
+        # the copy incomplete would be data loss)
+        assert (fab.mapping.epoch == 0) == (m.phase == "copying"), \
+            f"seed {seed}: ratchet/copy desync: epoch=" \
+            f"{fab.mapping.epoch} phase={m.phase}"
+        if m.phase == "copying":
+            assert not m.pending or fab.mapping.epoch == 0
+        # writes during the (possibly stalled) migration are never lost
+        u = user_on_shard(fab, 0, b"rp%d-" % seed, start=31)
+        rid += 1
+        req = signed_write(fab, u, rid)
+        writes.append((u, req))
+        assert fab.submit_write(req) is not None
+        for r in rules:
+            tshard.net.remove_rule(r)
+        _drive_migration(fab, m, timeout=120.0)
+        assert m.phase == "done", \
+            f"seed {seed}: migration never recovered from the partition " \
+            f"({m.to_dict()})"
+        _assert_exactly_once(fab, seed, writes)
+    elif rung == 3:
+        # STALE-EPOCH WRITES RACING THE RATCHET: a write landing at the
+        # OLD owner inside the handoff window is forwarded and ordered
+        # exactly once at the NEW owner; past the window it fails closed
+        # (explicit NACK, ordered NOWHERE)
+        m = fab.reshard.split(0)
+        while m.phase == "copying":
+            fab.run(0.5)
+        assert m.phase == "handoff"
+        stale_sink = fab.router.sinks[0]
+        mover = user_on_shard(fab, 2, b"rw%d-" % seed)
+        rid += 1
+        req = signed_write(fab, mover, rid)
+        writes.append((mover, req))
+        before = fab.shards[2].ordered_count()
+        stale_sink(req, "stale-client")
+        elapsed = 0.0
+        while elapsed < 30.0 and fab.shards[2].ordered_count() <= before:
+            fab.run(0.5)
+            elapsed += 0.5
+        assert fab.shards[2].ordered_count() == before + 1, \
+            f"seed {seed}: in-window stale write dropped"
+        assert m.forwarded >= 1 and not fab.stale_nacks
+        # run out the window (+ drain grace), then race again: fail closed
+        fab.run(fab.config.RESHARD_HANDOFF_WINDOW * 3 + 5.0)
+        late_u = user_on_shard(fab, 2, b"rw%d-" % seed, start=60)
+        rid += 1
+        late = signed_write(fab, late_u, rid)
+        c0, c2 = fab.shards[0].ordered_count(), fab.shards[2].ordered_count()
+        stale_sink(late, "stale-client")
+        fab.run(5.0)
+        assert fab.stale_nacks, f"seed {seed}: late stale write not NACKed"
+        assert fab.shards[0].ordered_count() == c0 and \
+            fab.shards[2].ordered_count() == c2, \
+            f"seed {seed}: post-window stale write ordered somewhere"
+        _assert_exactly_once(fab, seed, writes)
+    elif rung == 4:
+        # 2PC COORDINATOR CRASH between prepare and commit: the
+        # participant's lock TTL resolves via the anchored decision read
+        # (proven absence -> abort), ledger recovery orders the abort —
+        # and a later transaction over the same dependency commits
+        import json as _json
+        from plenum_tpu_torch.execution.txn import ATTRIB, NYM
+        xsw = fab.cross_writes()
+        home = user_on_shard(fab, 0, b"xh%d-" % seed, start=80)
+        txid = xsw.begin(
+            0, 1, {"type": NYM, "dest": home.identifier,
+                   "verkey": home.verkey_b58},
+            {"type": GET_NYM, "dest": u_cold.identifier},
+            {"type": ATTRIB, "dest": u_cold.identifier,
+             "raw": _json.dumps({"linked": home.identifier})})
+        assert xsw.step(txid) == "prepared"
+        crash_after_lock = rng.integer(0, 1) == 1
+        if crash_after_lock:
+            assert xsw.step(txid) == "locked"
+        fab.run(25.0)                  # crash; TTLs expire
+        rec = xsw.recover_from_ledger(0)
+        assert txid in rec["aborted"], f"seed {seed}: {rec}"
+        xsw.participant(1).service()
+        assert xsw.participant(1).locks == {}, \
+            f"seed {seed}: orphan lock survived the crash"
+        records = xsw._scan_records(0)
+        assert records[txid]["decision"]["decision"] == "abort"
+        # atomicity: NEITHER half applied
+        node0 = next(iter(fab.shards[0].nodes.values()))
+        from plenum_tpu_torch.execution import txn as txn_lib
+        ledger0 = node0.c.db.get_ledger(DOMAIN_LEDGER_ID)
+        assert not any(
+            txn_lib.txn_data(ledger0.get_by_seq_no(i)).get("dest")
+            == home.identifier for i in range(2, ledger0.size + 1)), \
+            f"seed {seed}: half-commit at home after crash"
+        # the dependency is free again: a retry commits cleanly
+        home2 = user_on_shard(fab, 0, b"xh%d-" % seed, start=120)
+        txid2 = xsw.begin(
+            0, 1, {"type": NYM, "dest": home2.identifier,
+                   "verkey": home2.verkey_b58},
+            {"type": GET_NYM, "dest": u_cold.identifier})
+        assert xsw.drive(txid2) == "committed", \
+            f"seed {seed}: retry after crash-abort failed"
+    else:
+        # 2PC RACING THE RATCHET: a LIVE SPLIT of the coordinator's own
+        # shard lands between lock and commit — the transaction must
+        # abort fail-closed (epoch changed), with zero half-commits,
+        # while the migration itself completes
+        from plenum_tpu_torch.execution.txn import NYM
+        xsw = fab.cross_writes()
+        xsw._anchor(0)                 # anchors ordered pre-migration
+        xsw._anchor(1)
+        home = user_on_shard(fab, 0, b"xr%d-" % seed, start=80)
+        txid = xsw.begin(
+            0, 1, {"type": NYM, "dest": home.identifier,
+                   "verkey": home.verkey_b58},
+            {"type": GET_NYM, "dest": u_cold.identifier})
+        assert xsw.step(txid) == "prepared"
+        assert xsw.step(txid) == "locked"
+        m = fab.reshard.split(0)       # the map moves under the 2PC
+        _drive_migration(fab, m)
+        assert m.phase == "done" and fab.mapping.epoch == 1
+        assert xsw.step(txid) == "aborted"
+        assert xsw.txs[txid].abort_reason == "epoch_changed", \
+            f"seed {seed}: {xsw.txs[txid].abort_reason}"
+        assert xsw.participant(1).locks == {}
+        node0 = next(iter(fab.shards[0].nodes.values()))
+        from plenum_tpu_torch.execution import txn as txn_lib
+        ledger0 = node0.c.db.get_ledger(DOMAIN_LEDGER_ID)
+        assert not any(
+            txn_lib.txn_data(ledger0.get_by_seq_no(i)).get("dest")
+            == home.identifier for i in range(2, ledger0.size + 1)), \
+            f"seed {seed}: half-commit despite the epoch ratchet"
+        _assert_exactly_once(fab, seed, writes)
+
+    if faulted_plane is not None:
+        sup, faulty = faulted_plane
+        st = sup.supervisor_stats()
+        assert st["fallback_batches"] >= 1, \
+            f"seed {seed}: reshard under crypto fault never took fallback"
+        assert sup.stats["verdict_forks"] == 0
+
+    for shard in fab.shards.values():
+        assert_safety(shard)
+
+
+def run_reshard_with_device_flap(seed: int) -> None:
+    """A live split while the SOURCE shard's crypto plane is faulted:
+    the copy replays and the handoff ride hedged CPU fallback, and the
+    migration still completes exactly-once."""
+    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
+    from plenum_tpu_torch.parallel.faults import FaultyVerifier
+    from plenum_tpu_torch.parallel.supervisor import (CircuitBreaker,
+                                                DeadlineBudget,
+                                                SupervisedVerifier)
+    rng = SimRandom(seed * 67867979 + 7)
+    faulty = FaultyVerifier(CpuEd25519Verifier())
+    sup = SupervisedVerifier(
+        faulty, fallback=CpuEd25519Verifier(),
+        breaker=CircuitBreaker(fail_threshold=2,
+                               cooldown=rng.float(0.5, 1.5)),
+        budget=DeadlineBudget(base=rng.float(0.3, 0.6), min_s=0.2,
+                              warm_max=1.0, cold_max=1.0))
+    # rung 0 (the live split): its mid-migration writes drive auth
+    # through the faulted source plane, so the breaker + hedged CPU
+    # fallback are actually exercised by the migration itself
+    run_reshard_fuzz_scenario(seed, force_rung=0,
+                              faulted_plane=(sup, faulty))
+
+
+def run_reshard_with_client_flood(seed: int) -> None:
+    """A live split while hot clients flood the front door: over-cap
+    bursts shed EXPLICITLY, the honest client's write (owned by the
+    migrating shard) survives the migration, and the reshard completes."""
+    from plenum_tpu_torch.client.sim_clients import burst_writes
+    from plenum_tpu_torch.common.node_messages import LoadShed
+    from test_torch_shards import signed_write, user_on_shard
+
+    rng = SimRandom(seed * 37199 + 11)
+    cap = rng.integer(2, 4)
+    from plenum_tpu_torch.shards import ShardedSimFabric
+    fab = _track(ShardedSimFabric(
+        n_shards=2, nodes_per_shard=4, seed=seed,
+        config=Config(**FAST, INGRESS_CLIENT_QUEUE_CAP=cap)))
+    entry = fab.shards[0].names[0]
+    ing = fab.ingress_plane(entry, tick=False)
+
+    honest = user_on_shard(fab, 0, b"fl%d-" % seed)
+    req = signed_write(fab, honest, 1)
+    fab.submit_write(req)
+    elapsed = 0.0
+    while elapsed < 20.0 and fab.shards[0].ordered_count() < 1:
+        fab.run(0.5)
+        elapsed += 0.5
+    assert fab.shards[0].ordered_count() >= 1
+
+    m = fab.reshard.split(0)
+    n_hot = rng.integer(4, 8)
+    per_client = cap + rng.integer(3, 5)
+    for client, burst_req in burst_writes(fab.trustee, n_hot, per_client,
+                                          seed=seed):
+        ing.submit(burst_req.to_dict(), client)
+    honest2 = user_on_shard(fab, 0, b"fh%d-" % seed, start=40)
+    ing.submit(signed_write(fab, honest2, 2).to_dict(), "honest-2")
+    for _ in range(240):
+        ing.service()
+        fab.run(0.5)
+        if m.phase == "done":
+            break
+    assert m.phase == "done", \
+        f"seed {seed}: reshard starved by the flood ({m.to_dict()})"
+    sheds = [msg for msg, _ in fab.shards[0].client_msgs[entry]
+             if isinstance(msg, LoadShed)]
+    assert len(sheds) >= n_hot * (per_client - cap), \
+        f"seed {seed}: over-cap burst not shed explicitly"
+    owner = fab.router.shard_of(signed_write(fab, honest2, 2))
+    node = next(iter(fab.shards[owner].nodes.values()))
+    elapsed = 0.0
+    while elapsed < 30.0 and node._executed_txn(
+            signed_write(fab, honest2, 2)) is None:
+        ing.service()
+        fab.run(0.5)
+        elapsed += 0.5
+    assert node._executed_txn(signed_write(fab, honest2, 2)) is not None, \
+        f"seed {seed}: honest write lost across flood + migration"
+    for shard in fab.shards.values():
+        assert_safety(shard)
+
+
+RESHARD_SEEDS = 20
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
+def test_sim_reshard_fuzz(bucket):
+    for seed in range(bucket * 5, (bucket + 1) * 5):
+        _run_with_artifacts(run_reshard_fuzz_scenario, seed)
+
+
+def test_sim_reshard_smoke():
+    """Two rungs always run in the default suite: the healthy split
+    under traffic (exactly-once + the stale-view reader refreshing) and
+    the ratchet race (in-window forward, post-window fail-closed NACK)."""
+    _held_smoke(run_reshard_fuzz_scenario, 1, force_rung=0)
+    _held_smoke(run_reshard_fuzz_scenario, 2, force_rung=3)
+
+
+def test_sim_reshard_2pc_smoke():
+    """The 2PC fault rungs always run: coordinator crash between
+    prepare and commit (atomicity through recovery), and the live split
+    racing an in-flight cross-shard write (fail-closed epoch abort)."""
+    _held_smoke(run_reshard_fuzz_scenario, 3, force_rung=4)
+    _held_smoke(run_reshard_fuzz_scenario, 4, force_rung=5)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(2))
+def test_sim_reshard_device_flap_fuzz(bucket):
+    for seed in range(bucket * 3, (bucket + 1) * 3):
+        _run_with_artifacts(run_reshard_with_device_flap, seed)
+
+
+def test_sim_reshard_device_flap_smoke():
+    _held_smoke(run_reshard_with_device_flap, 1)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(2))
+def test_sim_reshard_client_flood_fuzz(bucket):
+    for seed in range(bucket * 2, (bucket + 1) * 2):
+        _run_with_artifacts(run_reshard_with_client_flood, seed)
+
+
+def test_sim_reshard_client_flood_smoke():
+    _held_smoke(run_reshard_with_client_flood, 1)
+
+
+# --- membership_churn satellite: DIRECTORY-COMMITTEE key rotation -----------
+
+
+def run_membership_churn_dir_rotation_scenario(seed: int) -> None:
+    """Rotate one directory-committee signer MID-LOAD: the mapping root
+    re-signs under the new committee, old-committee map proofs fail
+    closed against the rotated trust root, and reads/writes keep
+    flowing for clients holding the new root."""
+    from plenum_tpu_torch.crypto.bls import BlsCryptoSigner
+    from plenum_tpu_torch.execution.txn import GET_NYM
+    from test_torch_shards import signed_write, user_on_shard
+
+    rng = SimRandom(seed * 23456789 + 13)
+    fab = _reshard_fabric(seed)
+    users = {sid: user_on_shard(fab, sid, b"dr%d-" % seed)
+             for sid in fab.shards}
+    for rid, (sid, u) in enumerate(sorted(users.items()), start=1):
+        assert fab.submit_write(signed_write(fab, u, rid)) == sid
+    elapsed = 0.0
+    while elapsed < 25.0 and any(s.ordered_count() < 1
+                                 for s in fab.shards.values()):
+        fab.run(0.5)
+        elapsed += 0.5
+
+    victim_sid = rng.integer(0, 1)
+    key = fab.mapping.shard_of(
+        users[victim_sid].identifier.encode())     # sanity: map intact
+    old_keys = dict(fab.mapping.directory_keys)
+    old_proof = fab.mapping.ownership_proof(
+        users[victim_sid].identifier.encode())
+    stale_client = fab.read_driver()               # trusts the OLD root
+    assert stale_client.checker.directory_keys == old_keys
+
+    # rotate one signer mid-load; writes keep flowing around it
+    victim_dir = sorted(fab.directory)[rng.integer(0, 3)]
+    new_signer = BlsCryptoSigner(
+        seed=(b"dirrot%d-%s" % (seed, victim_dir.encode()))
+        .ljust(32, b"\0")[:32])
+    fab.mapping.rotate_signer(victim_dir, new_signer)
+    u_mid = user_on_shard(fab, 0, b"dm%d-" % seed, start=30)
+    elapsed, target = 0.0, fab.shards[0].ordered_count() + 1
+    assert fab.submit_write(signed_write(fab, u_mid, 50)) == 0
+    while elapsed < 25.0 and fab.shards[0].ordered_count() < target:
+        fab.run(0.5)
+        elapsed += 0.5
+    assert fab.shards[0].ordered_count() >= target, \
+        f"seed {seed}: pool stalled across the directory rotation"
+
+    from plenum_tpu_torch.shards import verify_ownership
+    new_keys = fab.mapping.directory_keys
+    # the root RE-SIGNED: fresh proofs verify under the new committee
+    fresh = fab.mapping.ownership_proof(users[victim_sid]
+                                        .identifier.encode())
+    got, why = verify_ownership(users[victim_sid].identifier.encode(),
+                                fresh, new_keys,
+                                now=fab.timer.get_current_time)
+    assert why == "ok" and got.shard_id == key.shard_id, \
+        f"seed {seed}: re-signed root does not verify ({why})"
+    # OLD-committee proofs fail closed against the rotated trust root
+    got, why = verify_ownership(users[victim_sid].identifier.encode(),
+                                old_proof, new_keys,
+                                now=fab.timer.get_current_time)
+    assert got is None and why == "bad_map_multi_sig", \
+        f"seed {seed}: old-committee proof accepted ({why})"
+    # a client on the NEW root verifies reads end to end
+    fresh_client = fab.read_driver()
+    q = Request("dr", 60, {"type": GET_NYM,
+                           "dest": users[victim_sid].identifier})
+    res = fresh_client.read(q, per_node_s=2.0, step_s=0.1)
+    assert res is not None and fresh_client.stats.summary()[
+        "map_proof_failures"] == 0, \
+        f"seed {seed}: rotated root broke healthy reads"
+    # a client still pinning the OLD root rejects the new signature —
+    # fail closed, never a silently-accepted downgrade
+    q2 = Request("dr", 61, dict(q.operation))
+    res = stale_client.read(q2, per_node_s=1.0, step_s=0.1)
+    s = stale_client.stats.summary()
+    assert res is None and \
+        s["map_failure_reasons"].get("bad_map_multi_sig", 0) >= 1, \
+        f"seed {seed}: old-root client accepted the rotated committee {s}"
+    for shard in fab.shards.values():
+        assert_safety(shard)
+
+
+DIR_ROTATION_SEEDS = 8
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(2))
+def test_sim_membership_churn_dir_rotation_fuzz(bucket):
+    for seed in range(bucket * 4, (bucket + 1) * 4):
+        _run_with_artifacts(run_membership_churn_dir_rotation_scenario,
+                            seed)
+
+
+def test_sim_membership_churn_dir_rotation_smoke():
+    _held_smoke(run_membership_churn_dir_rotation_scenario, 1)
+
+
+# --- autopilot: the control plane under composed stress ----------------------
+# The `autopilot` fuzz kind: telemetry -> actuation closed-loop
+# (control/autopilot.py). Every scenario runs with ZERO test-driven
+# actuation — the test injects load and faults, the autopilot alone
+# splits, re-pins, scales and degrades — and every run must leave a
+# control ledger that AUDITS CLEAN (tools/control_audit.py): the pinned
+# no-flap property (no action/undo pair inside one cooldown window, no
+# oscillating split/merge), every action evidenced, every undo citing
+# its action.
+
+def _autopilot_config(**over):
+    cfg = dict(FAST)
+    cfg.update(AUTOPILOT=True, AUTOPILOT_INTERVAL=0.5,
+               AUTOPILOT_SUSTAIN=2, AUTOPILOT_RECOVER_SUSTAIN=3,
+               AUTOPILOT_COOLDOWN=6.0, RESHARD_COOLDOWN=6.0,
+               TELEMETRY_INTERVAL=0.5, SLO_BURN_FAST_WINDOW=2.0,
+               SLO_BURN_SLOW_WINDOW=6.0)
+    cfg.update(over)
+    return Config(**cfg)
+
+
+def _autopilot_audit(ap, seed: int) -> list[dict]:
+    from plenum_tpu_torch.tools.control_audit import audit_records
+    recs = ap.ledger.to_dicts()
+    problems = audit_records(recs)
+    assert problems == [], \
+        f"seed {seed}: control ledger failed its audit: {problems}"
+    return recs
+
+
+def _supervised_lanes(rng, n_lanes):
+    from plenum_tpu_torch.crypto.ed25519 import CpuEd25519Verifier
+    from plenum_tpu_torch.parallel.faults import FaultyVerifier
+    from plenum_tpu_torch.parallel.supervisor import (CircuitBreaker,
+                                                DeadlineBudget,
+                                                SupervisedVerifier)
+    faulties, sups = [], []
+    for k in range(n_lanes):
+        faulty = FaultyVerifier(CpuEd25519Verifier())
+        sup = SupervisedVerifier(
+            faulty, fallback=CpuEd25519Verifier(),
+            breaker=CircuitBreaker(fail_threshold=2,
+                                   cooldown=rng.float(0.5, 1.5)),
+            budget=DeadlineBudget(base=rng.float(0.3, 0.6), min_s=0.2,
+                                  warm_max=1.0, cold_max=1.0),
+            label=f"lane{k}")
+        faulties.append(faulty)
+        sups.append(sup)
+    return faulties, sups
+
+
+def _junk(tag: bytes, seed: int, n: int = 3):
+    return [(b"%s-%d-%d" % (tag, seed, i), b"\x01" * 63 + b"\x00",
+             bytes([i % 250 + 1]) * 32) for i in range(n)]
+
+
+def run_autopilot_split_scenario(seed: int) -> None:
+    """Zipfian flood onto shard 0: the autopilot's SUSTAINED imbalance
+    judgment must drive maybe_split on its own, the migration completes
+    exactly-once, and the ledger shows ONE split (evidence + pre/post
+    shard state) with no merge chasing it."""
+    from plenum_tpu_torch.shards import ShardedSimFabric
+    from test_torch_shards import signed_write, user_on_shard
+
+    rng = SimRandom(seed * 93179 + 3)
+    fab = _track(ShardedSimFabric(n_shards=2, nodes_per_shard=3,
+                                  seed=seed, config=_autopilot_config()))
+    ap = fab.autopilot
+    assert ap is not None
+
+    writes, rid = [], 0
+    for k in range(10 + rng.integer(0, 4)):
+        sid = 1 if k % 8 == 7 else 0           # ~90% keyed into shard 0
+        u = user_on_shard(fab, sid, b"as%d-" % seed, start=k * 13)
+        rid += 1
+        req = signed_write(fab, u, rid)
+        writes.append((u, req))
+        assert fab.submit_write(req) is not None
+
+    elapsed = 0.0
+    while elapsed < 60.0 and not any(
+            r.action == "split" for r in ap.ledger.records):
+        fab.run(0.5)
+        elapsed += 0.5
+    splits = [r for r in ap.ledger.records if r.action == "split"]
+    assert splits, \
+        f"seed {seed}: sustained imbalance never actuated a split " \
+        f"({ap.summary()})"
+    m = fab.reshard.active or fab.reshard.history[-1]
+    _drive_migration(fab, m, timeout=120.0)
+    assert m.phase == "done", \
+        f"seed {seed}: autopilot split never completed: {m.to_dict()}"
+    assert len(fab.shards) == 3 and fab.mapping.epoch == 1
+    rec = splits[0]
+    assert rec.evidence.get("hot_shard") == 0 and \
+        rec.evidence.get("index", 0) >= \
+        fab.config.SHARD_IMBALANCE_THRESHOLD, rec.evidence
+    assert rec.pre["shards"] == [0, 1] and rec.post["shards"] == [0, 1, 2]
+    # no oscillation: one split, zero merges, audit-clean ledger
+    fab.run(fab.config.AUTOPILOT_COOLDOWN + 3.0)
+    assert len([r for r in ap.ledger.records
+                if r.action == "split"]) == 1, \
+        f"seed {seed}: the split chased its own transient"
+    assert not [r for r in ap.ledger.records if r.action == "merge"], \
+        f"seed {seed}: split/merge oscillation"
+    _autopilot_audit(ap, seed)
+    _assert_exactly_once(fab, seed, writes)
+    for shard in fab.shards.values():
+        assert_safety(shard)
+
+
+def run_autopilot_repin_scenario(seed: int) -> None:
+    """One chip of the shared multi-device ring flaps: the sustained
+    open breaker re-pins the sick lane's shards to a healthy chip, a
+    write ordered mid-sickness survives, and after the breaker holds
+    closed through the recovery window (+cooldown) the pins RESTORE —
+    the unpin citing its repin, never both inside one window."""
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
+    from plenum_tpu_torch.parallel.supervisor import CLOSED
+    from plenum_tpu_torch.shards import ShardedSimFabric
+    from test_torch_shards import signed_write, user_on_shard
+
+    rng = SimRandom(seed * 69623 + 29)
+    faulties, sups = _supervised_lanes(rng, n_lanes=3)
+    pipeline = MultiDeviceCryptoPipeline(
+        ed_inners=sups, config=Config(**FAST), threaded=False)
+    fab = _track(ShardedSimFabric(n_shards=2, nodes_per_shard=3,
+                                  seed=seed, config=_autopilot_config(),
+                                  pipeline=pipeline))
+    ap = fab.autopilot
+    for obj in (*sups, *faulties):
+        obj.set_clock(fab.timer.get_current_time)
+
+    sick = fab.lane_pins[0]
+    assert sick is not None
+    kind = ("wedge", "drop", "corrupt")[rng.integer(0, 2)]
+    getattr(faulties[sick], kind)()
+    elapsed = 0.0
+    while elapsed < 40.0 and not any(
+            r.action == "repin" for r in ap.ledger.records):
+        pipeline.verifier(lane=sick).verify_batch(
+            _junk(b"ap-sick%d" % int(elapsed * 2), seed))
+        fab.run(0.5)
+        elapsed += 0.5
+    repins = [r for r in ap.ledger.records if r.action == "repin"]
+    assert repins, \
+        f"seed {seed}: sustained open breaker never re-pinned " \
+        f"(breaker={sups[sick].breaker.state}, {ap.summary()})"
+    target = fab.lane_pins[0]
+    assert target != sick, f"seed {seed}: pin did not move off lane {sick}"
+    assert repins[0].evidence.get("sick_lane") == sick
+
+    # ordering continues on the re-pinned lane while the chip is dark
+    u = user_on_shard(fab, 0, b"ar%d-" % seed)
+    req = signed_write(fab, u, 1)
+    assert fab.submit_write(req) is not None
+    before = fab.shards[0].ordered_count()
+    elapsed = 0.0
+    while elapsed < 30.0 and fab.shards[0].ordered_count() <= before:
+        fab.run(0.5)
+        elapsed += 0.5
+    assert fab.shards[0].ordered_count() > before, \
+        f"seed {seed}: shard stopped ordering after the re-pin"
+
+    # heal: probe traffic re-closes the breaker; the clear streak plus
+    # the repin's cooldown stamp gate the restore
+    faulties[sick].heal()
+    elapsed = 0.0
+    while elapsed < 60.0 and not any(
+            r.action == "unpin" for r in ap.ledger.records):
+        if sups[sick].breaker.state != CLOSED:
+            pipeline.verifier(lane=sick).verify_batch(
+                _junk(b"ap-heal%d" % int(elapsed * 2), seed))
+        fab.run(0.5)
+        elapsed += 0.5
+    unpins = [r for r in ap.ledger.records if r.action == "unpin"]
+    assert unpins, \
+        f"seed {seed}: pins never restored after the re-warm " \
+        f"({ap.summary()})"
+    assert fab.lane_pins[0] == sick            # back on its own chip
+    assert unpins[0].cites == repins[0].seq
+    # hysteresis, not a flap: the undo landed OUTSIDE the cooldown
+    assert unpins[0].t >= repins[0].cooldown_until
+    _autopilot_audit(ap, seed)
+    for shard in fab.shards.values():
+        assert_safety(shard)
+
+
+def run_autopilot_observer_scenario(seed: int) -> None:
+    """Regional read burn: reads beyond the region's pooled capacity
+    ledger SLO violations, the sustained burn spawns an observer, and
+    after demand falls back (with measured headroom) the newest one
+    retires — the retire citing its spawn."""
+    from plenum_tpu_torch.execution.txn import GET_NYM
+    from plenum_tpu_torch.shards import ShardedSimFabric
+
+    rng = SimRandom(seed * 50329 + 13)
+    cap = 3.0 + rng.integer(0, 3)
+    fab = _track(ShardedSimFabric(n_shards=2, nodes_per_shard=3,
+                                  seed=seed, config=_autopilot_config()))
+    fleet = fab.attach_observer_fleet(regions=("r0",), capacity=cap)
+    ap = fab.autopilot
+    q = Request("rdr", 1, {"type": GET_NYM,
+                           "dest": fab.trustee.identifier}).to_dict()
+
+    elapsed = 0.0
+    while elapsed < 40.0 and fleet.count("r0") == 1:
+        for _ in range(int(cap * 3) + 2):      # ~3x pooled capacity
+            fleet.serve_read("r0", q)
+        fab.run(0.5)
+        elapsed += 0.5
+    assert fleet.count("r0") == 2, \
+        f"seed {seed}: read burn never spawned an observer " \
+        f"({fleet.summary()}, {ap.summary()})"
+    spawns = [r for r in ap.ledger.records
+              if r.action == "observer_spawn"]
+    assert spawns[0].subject == "r0" and spawns[0].evidence
+
+    # demand falls to a trickle one observer holds with headroom
+    elapsed = 0.0
+    while elapsed < 60.0 and fleet.count("r0") == 2:
+        fleet.serve_read("r0", q)
+        fab.run(0.5)
+        elapsed += 0.5
+    assert fleet.count("r0") == 1, \
+        f"seed {seed}: observer never retired after recovery " \
+        f"({fleet.summary()}, {ap.summary()})"
+    retires = [r for r in ap.ledger.records
+               if r.action == "observer_retire"]
+    assert retires[0].cites == spawns[0].seq
+    assert retires[0].t >= spawns[0].cooldown_until
+    assert fleet.stats["reads"] > 0 and fleet.stats["violations"] > 0
+    _autopilot_audit(ap, seed)
+    for shard in fab.shards.values():
+        assert_safety(shard)
+
+
+def run_autopilot_ladder_scenario(seed: int) -> None:
+    """A front door's SLO ledger burns hot and STAYS hot: the ladder
+    steps down (shed-harder clamps every ingress plane, then pool-wide
+    read-only), holds at the floor, and steps back UP one level at a
+    time on sustained recovery — recovers citing their degrades LIFO,
+    and a catchup-parked read-only is never the autopilot's to clear."""
+    from plenum_tpu_torch.shards import ShardedSimFabric
+
+    rng = SimRandom(seed * 104729 + 5)
+    fab = _track(ShardedSimFabric(n_shards=2, nodes_per_shard=3,
+                                  seed=seed, config=_autopilot_config()))
+    ap = fab.autopilot
+    entry = fab.shards[0].names[0]
+    plane = fab.ingress_plane(entry, tick=False)
+    base_wm = plane.shed_watermark
+    tracker = fab.aggregator.tracker("ingress", "front-door")
+
+    def feed(viol: int, n: int = 5) -> None:
+        tracker.note(fab.timer.get_current_time(), viol, n)
+        fab.run(0.5)
+
+    burn = 3 + rng.integer(0, 2)
+    elapsed = 0.0
+    while elapsed < 60.0 and ap.level < 1:
+        feed(burn)
+        elapsed += 0.5
+    assert ap.level >= 1, f"seed {seed}: ladder never degraded " \
+                          f"({ap.summary()})"
+    assert plane.shed_watermark == max(
+        1, fab.config.INGRESS_HIGH_WATERMARK
+        // fab.config.AUTOPILOT_SHED_FACTOR)
+    while elapsed < 120.0 and ap.level < 2:
+        feed(burn)
+        elapsed += 0.5
+    assert ap.level == 2, f"seed {seed}: ladder stuck below read-only " \
+                          f"({ap.summary()})"
+    assert all(n.read_only_degraded for n in fab.nodes.values())
+    # held at the floor: more burn, no action past the ladder's end
+    floor_actions = ap.counts["actions"]
+    for _ in range(8):
+        feed(burn)
+    assert ap.counts["actions"] == floor_actions
+
+    # recovery: clean intervals age the burn out of both windows
+    while elapsed < 300.0 and ap.level > 0:
+        feed(0)
+        elapsed += 0.5
+    assert ap.level == 0, f"seed {seed}: ladder never recovered " \
+                          f"({ap.summary()})"
+    assert not any(n.read_only_degraded for n in fab.nodes.values())
+    assert plane.shed_watermark == base_wm
+    recs = _autopilot_audit(ap, seed)
+    degrades = [r for r in recs if r["action"] == "degrade"]
+    recovers = [r for r in recs if r["action"] == "recover"]
+    assert [r["subject"] for r in degrades] == ["shed_harder",
+                                                "read_only"]
+    assert [r["cites"] for r in recovers] == \
+        [degrades[1]["seq"], degrades[0]["seq"]]
+    for shard in fab.shards.values():
+        assert_safety(shard)
+
+
+def run_autopilot_composed_scenario(seed: int) -> None:
+    """The acceptance run: zipfian client flood + a flapping chip lane
+    + the live-split membership churn the autopilot itself drives, all
+    at once, healed end-to-end with zero test-driven actuation. Pinned:
+    the ledger audits clean (no action/undo inside a cooldown window),
+    no split/merge oscillation, exactly-once ordering, no fork."""
+    from plenum_tpu_torch.parallel.pipeline import MultiDeviceCryptoPipeline
+    from plenum_tpu_torch.parallel.supervisor import CLOSED
+    from plenum_tpu_torch.execution.txn import GET_NYM
+    from plenum_tpu_torch.shards import ShardedSimFabric
+    from test_torch_shards import signed_write, user_on_shard
+
+    rng = SimRandom(seed * 122949823 + 19)
+    faulties, sups = _supervised_lanes(rng, n_lanes=3)
+    pipeline = MultiDeviceCryptoPipeline(
+        ed_inners=sups, config=Config(**FAST), threaded=False)
+    # generous SLO budgets: the composed run exercises split + re-pin +
+    # observer scale; the ladder has its own dedicated scenario and
+    # must not park the pool read-only mid-migration over sim timing
+    fab = _track(ShardedSimFabric(
+        n_shards=2, nodes_per_shard=3, seed=seed,
+        config=_autopilot_config(BATCH_SLO_P95=30.0,
+                                 INGRESS_SLO_P95=30.0),
+        pipeline=pipeline))
+    ap = fab.autopilot
+    for obj in (*sups, *faulties):
+        obj.set_clock(fab.timer.get_current_time)
+    cap = 3.0 + rng.integer(0, 2)
+    fleet = fab.attach_observer_fleet(regions=("r0",), capacity=cap)
+    q = Request("rdr", 1, {"type": GET_NYM,
+                           "dest": fab.trustee.identifier}).to_dict()
+
+    # zipfian flood: ~90% of the writes key into shard 0
+    writes, rid = [], 0
+    for k in range(8 + rng.integer(0, 4)):
+        sid = 1 if k % 8 == 7 else 0
+        u = user_on_shard(fab, sid, b"ac%d-" % seed, start=k * 19)
+        rid += 1
+        req = signed_write(fab, u, rid)
+        writes.append((u, req))
+        assert fab.submit_write(req) is not None
+
+    sick = fab.lane_pins[0]
+    kind = ("wedge", "drop", "corrupt")[rng.integer(0, 2)]
+    fab.run(rng.float(0.5, 1.5))
+    getattr(faulties[sick], kind)()            # the chip flaps mid-flood
+    heal_step = 24 + rng.integer(0, 8)
+    for step in range(120):
+        if step == heal_step:
+            faulties[sick].heal()
+        if step < heal_step:
+            pipeline.verifier(lane=sick).verify_batch(
+                _junk(b"cx%d" % step, seed))
+        elif sups[sick].breaker.state != CLOSED:
+            pipeline.verifier(lane=sick).verify_batch(
+                _junk(b"ch%d" % step, seed))
+        for _ in range(int(cap * 3) + 2 if step < 40 else 1):
+            fleet.serve_read("r0", q)          # read burn, then trickle
+        fab.run(0.5)
+        if step > 80 and fab.reshard.active is None \
+                and sups[sick].breaker.state == CLOSED \
+                and not ap._repins:
+            break
+    if fab.reshard.active is not None:
+        _drive_migration(fab, fab.reshard.active, timeout=120.0)
+
+    recs = _autopilot_audit(ap, seed)          # the pinned no-flap gate
+    splits = [r for r in recs if r["action"] == "split"]
+    merges = [r for r in recs if r["action"] == "merge"]
+    assert len(splits) <= 1 and not merges, \
+        f"seed {seed}: split/merge oscillation under composed stress " \
+        f"({[r['action'] for r in recs]})"
+    assert splits, \
+        f"seed {seed}: the hot-shard flood never split ({ap.summary()})"
+    assert fab.reshard.history and \
+        fab.reshard.history[-1].phase == "done", \
+        f"seed {seed}: composed stress starved the migration"
+    repins = [r for r in recs if r["action"] == "repin"]
+    assert repins, \
+        f"seed {seed}: the flapping chip never forced a re-pin " \
+        f"({ap.summary()})"
+    _assert_exactly_once(fab, seed, writes)
+    for shard in fab.shards.values():
+        assert_safety(shard)
+
+
+AUTOPILOT_SEEDS = 12
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bucket", range(4))
+def test_sim_autopilot_fuzz(bucket):
+    for seed in range(bucket * 3, (bucket + 1) * 3):
+        _run_with_artifacts(run_autopilot_composed_scenario, seed)
+
+
+def test_sim_autopilot_split_smoke():
+    _held_smoke(run_autopilot_split_scenario, 1)
+
+
+def test_sim_autopilot_repin_smoke():
+    _held_smoke(run_autopilot_repin_scenario, 1)
+
+
+def test_sim_autopilot_observer_smoke():
+    _held_smoke(run_autopilot_observer_scenario, 1)
+
+
+def test_sim_autopilot_ladder_smoke():
+    _held_smoke(run_autopilot_ladder_scenario, 1)
+
+
+def test_sim_autopilot_composed_smoke():
+    _held_smoke(run_autopilot_composed_scenario, 1)
 
 
 # --- the port against the reference, and against itself -------------------

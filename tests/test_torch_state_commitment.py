@@ -2,10 +2,9 @@
 (tests/test_state_commitment.py): KZG engine, Verkle backend, interface
 conformance across backends and the pipeline commitment wave kind, on
 the ring's default host KZG engine, and the read plane's verkle
-envelopes and multi-key pages on the port's pool. The ring takes no
-default Ed25519 inner in the port, so these rings get the CPU verifier.
-The cross-shard read needs `shards/`, which is not ported yet (ROADMAP
-A8).
+envelopes and multi-key pages on the port's pool, and the cross-shard
+read on a verkle-backed shard fabric. The ring takes no default Ed25519
+inner in the port, so these rings get the CPU verifier.
 """
 from __future__ import annotations
 
@@ -456,3 +455,43 @@ def test_verkle_multikey_deref_chain_aggregates(vpool):
         pool_bls_keys(pool.names), freshness_s=1e12,
         now=pool.timer.get_current_time)
     assert ok, reason
+
+
+# --- cross-shard composition -------------------------------------------------
+
+def test_cross_shard_read_composes_with_verkle_backend():
+    """A verkle-backed sharded fabric: the composed check (directory
+    ownership proof + the owning shard's verkle read proof) verifies
+    through the SAME CrossShardReadCheck core, unchanged."""
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.crypto.ed25519 import Ed25519Signer
+    from plenum_tpu_torch.execution.txn import GET_NYM, NYM
+    from plenum_tpu_torch.shards import ShardedSimFabric
+
+    fab = ShardedSimFabric(
+        n_shards=2, nodes_per_shard=4, seed=3,
+        config=Config(Max3PCBatchWait=0.05, STATE_COMMITMENT="verkle",
+                      crypto_backend="cpu"))
+    user = None
+    for i in range(400):
+        u = Ed25519Signer(seed=(b"xvk%d" % i).ljust(32, b"\0")[:32])
+        probe = Request(fab.trustee.identifier, 1,
+                        {"type": NYM, "dest": u.identifier})
+        if fab.router.shard_of(probe) == 1:
+            user = u
+            break
+    assert user is not None
+    req = Request(fab.trustee.identifier, 1,
+                  {"type": NYM, "dest": user.identifier,
+                   "verkey": user.verkey_b58})
+    req.signature = fab.trustee.sign_b58(req.signing_bytes())
+    assert fab.submit_write(req) == 1
+    fab.run(8.0)
+    driver = fab.read_driver()
+    q = Request("reader", 7, {"type": GET_NYM, "dest": user.identifier})
+    res = driver.read(q, per_node_s=2.0, step_s=0.1)
+    assert res is not None and res["data"]["verkey"] == user.verkey_b58
+    assert res["read_proof"]["kind"] == "verkle"
+    s = driver.stats.summary()
+    assert s["single_reply_ok"] == 1 and s["fallbacks"] == 0
+    assert s["cross_reads"] == 1 and s["map_proof_failures"] == 0

@@ -1,6 +1,5 @@
 """The port's copy of tests/test_telemetry.py, run on plenum_tpu_torch
-(nodes on the CPU). The zipfian hot-shard case waits for shards/
-(ROADMAP A8).
+(nodes on the CPU).
 
 Live fleet telemetry plane (plenum_tpu_torch/observability/).
 
@@ -337,6 +336,58 @@ def test_device_flap_degrades_crypto_health_and_recovers():
 
 
 # --- sharded fabric: imbalance + health exposure ----------------------------
+
+def test_zipfian_hot_shard_flags_imbalance():
+    """A 90:10 hot-key skew onto shard 0 must push the load-imbalance
+    index past the threshold and name shard 0 hot — the per-shard load
+    signal elastic resharding will consume — and surface per-shard
+    health through the router summary and `shards` metrics."""
+    from plenum_tpu_torch.common.request import Request
+    from plenum_tpu_torch.execution.txn import NYM
+    from plenum_tpu_torch.shards import ShardedSimFabric
+    fab = ShardedSimFabric(
+        n_shards=2, nodes_per_shard=3, seed=5,
+        config=Config(Max3PCBatchWait=0.05, TELEMETRY_INTERVAL=0.5,
+                      STATE_FRESHNESS_UPDATE_INTERVAL=600.0))
+    by_shard: dict[int, list] = {0: [], 1: []}
+    i = 0
+    while min(len(v) for v in by_shard.values()) < 40 and i < 400:
+        i += 1
+        user = Ed25519Signer(seed=(b"zh%08d" % i).ljust(32, b"\0")[:32])
+        req = Request(fab.trustee.identifier, i,
+                      {"type": NYM, "dest": user.identifier,
+                       "verkey": user.verkey_b58})
+        req.signature = fab.trustee.sign_b58(req.signing_bytes())
+        sid = fab.router.shard_of(req)
+        if sid in by_shard:
+            by_shard[sid].append(req)
+    for j in range(40):
+        fab.submit_write(by_shard[0][j] if j % 10 else by_shard[1][j // 10])
+        if j % 8 == 7:
+            fab.run(1.0)
+    fab.run(10.0)
+    fab.ordered_counts()
+    index, hot = fab.aggregator.load_imbalance()
+    assert hot == 0 and index is not None and index >= 1.5, \
+        f"hot shard not flagged: index={index} hot={hot} " \
+        f"rates={fab.aggregator.ordered_rates()}"
+    assert any(a.kind == "shard.imbalance" for a in fab.aggregator.alerts)
+    # satellite: per-shard health is visible at the routing layer and in
+    # the shards metrics section (signal only — no routing change)
+    summary = fab.router.summary()
+    assert summary["shard_health"] == {0: 1.0, 1: 1.0}
+    assert summary["degraded_shards"] == []
+    health_acc = fab.metrics.accumulators.get(MetricsName.SHARD_HEALTH)
+    imb_acc = fab.metrics.accumulators.get(MetricsName.SHARD_IMBALANCE)
+    assert health_acc is not None and health_acc.count >= 2
+    assert imb_acc is not None and imb_acc.max >= 1.5
+    # the read ladder exposes the same health signal
+    driver = fab.read_driver()
+    assert driver.shard_health() == {0: 1.0, 1: 1.0}
+    # and the fabric summary carries the full fleet columns
+    s = fab.summary()
+    assert s["hot_shard"] == 0 and s["load_imbalance"] == index
+
 
 
 

@@ -3,9 +3,9 @@ the port's tools held against the reference's.
 
 Ops-surface tests: wallet, keygen, genesis files, and a real 4-process
 pool started via the start_node script, written to and read from with the
-PoolClient over TCP (nodes on the `cpu` backend). The reference's bench
-configurations (config1b, config18) wait for the port's tools/ (ROADMAP
-A8). Across the packages: keygen and setup_pool_dir write byte-identical
+PoolClient over TCP (nodes on the `cpu` backend), and the reference's
+bench configurations config1b and config18 (slow) on the `cpu` backend
+(bench_configs defaults to the card). Across the packages: keygen and setup_pool_dir write byte-identical
 key and genesis files, and metrics_report derives equal summaries from
 one flushed store. The port's entry points (start_node, tcp_pool,
 replay, start_observer, ObserverNode, SimObserver) run on the card
@@ -308,6 +308,17 @@ def test_metrics_report_commit_stage_percentiles(tmp_path):
     assert summary["pairings_total"] == 200
     assert summary["plane_dispatches"] == 7
     assert summary["sig_batch_size_mean"] == 512.0
+
+
+def test_distinct_signers_config_orders_owner_writes():
+    """config1b: n distinct client keys on the authN hot path — every
+    ATTRIB owner-signed by its own DID (authorization: owner-or-trustee),
+    so the figure reflects diverse-client traffic, not one amortized
+    trustee key."""
+    from plenum_tpu_torch.tools.bench_configs import config1b_distinct_signers
+    r = config1b_distinct_signers(n_txns=40, timeout=60.0, backend="cpu")
+    assert r.get("txns_ordered") == 40, r
+    assert r["distinct_signers"] == 40
 
 
 def test_replay_reproduces_span_sequence():
@@ -708,3 +719,20 @@ def test_start_node_supervises_and_warms_the_card_verifier(tmp_path,
                      ("bootstrap", "cuda", "the card's verifier"),
                      ("bootstrap", "service", None),
                      ("bootstrap", "cpu", None)]
+
+
+@pytest.mark.slow
+def test_config18_autopilot_heals_zipfian_flood_hands_off():
+    """The ISSUE 18 acceptance bench: config12's zipfian hot-range
+    flood with AUTOPILOT=True and ZERO test-driven actuation — the
+    autopilot must split the hot shard on its own cadence and the run
+    must recover to >= 0.8x pre-flood TPS with a clean control-ledger
+    audit."""
+    from plenum_tpu_torch.tools.bench_configs import config18_autopilot
+    out = config18_autopilot(backend="cpu")
+    assert "error" not in out, out
+    assert out["test_driven_actuations"] == 0
+    assert out["recovery_ratio"] >= 0.8, out
+    assert out["audit_problems"] == [], out
+    assert out["split_evidence"]["hot_shard"] == 0
+    assert out["migration"]["phase"] == "done", out
