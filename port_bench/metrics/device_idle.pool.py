@@ -1,0 +1,2 @@
+"""Share of the traced window in which no operation ran on the card."""
+from port_bench.metrics_common import idle_percent as read  # noqa: F401
