@@ -21,6 +21,9 @@ import json
 import struct
 from typing import Any
 
+from plenum_tpu_torch.common.host_spans import RECORDER as _SPANS
+from plenum_tpu_torch.common.host_spans import SERDE as _SERDE
+
 
 class FormatError(ValueError):
     """An invalid msgpack head byte (msgpack.exceptions.FormatError)."""
@@ -215,12 +218,30 @@ else:
     packb, unpackb = pure_packb, pure_unpackb
 
 
+# each public serializer below is a `serde` host span while the span
+# recorder is on (common/host_spans.py); pack and unpack, run for every
+# message and ledger entry, check the recorder inline, so that off they
+# cost one attribute check and no extra call
+
+
 def pack(obj: Any) -> bytes:
     """Binary wire/ledger serialization (msgpack, deterministic map order)."""
+    if _SPANS.on:
+        s = _SPANS.begin(_SERDE)
+        try:
+            return packb(_sort_maps(obj))
+        finally:
+            _SPANS.end(s)
     return packb(_sort_maps(obj))
 
 
 def unpack(data: bytes) -> Any:
+    if _SPANS.on:
+        s = _SPANS.begin(_SERDE)
+        try:
+            return unpackb(data)
+        finally:
+            _SPANS.end(s)
     return unpackb(data)
 
 
@@ -285,16 +306,19 @@ def _sort_maps(obj: Any) -> Any:
     return obj
 
 
+@_SPANS.spanning(_SERDE)
 def signing_serialize(obj: Any) -> bytes:
     """Canonical JSON used as the message over which signatures are computed."""
     return json.dumps(obj, sort_keys=True, separators=(",", ":"),
                       ensure_ascii=False).encode()
 
 
+@_SPANS.spanning(_SERDE)
 def json_dumps(obj: Any) -> str:
     return json.dumps(obj, sort_keys=True, separators=(",", ":"))
 
 
+@_SPANS.spanning(_SERDE)
 def json_loads(data) -> Any:
     if isinstance(data, (bytes, bytearray)):
         data = data.decode()

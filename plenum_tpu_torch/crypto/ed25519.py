@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from plenum_tpu_torch import ops
+from plenum_tpu_torch.common.host_spans import AUTH, RECORDER
 from plenum_tpu_torch.common.metrics import MetricsName
 from plenum_tpu_torch.utils.base58 import b58encode
 
@@ -341,6 +342,7 @@ class TorchEd25519Verifier(Ed25519Verifier):
 
     # --- staging ------------------------------------------------------------
 
+    @RECORDER.spanning(AUTH)
     def stage_bytes(self, items: Sequence[VerifyItem]):
         """Host staging: per item one sha512 + one mod-L reduction.
         -> (idxs, tensors): the positions of the items that reach the

@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from plenum_tpu_torch.common.host_spans import AUTH, RECORDER
 from plenum_tpu_torch.common.request import Request
 from plenum_tpu_torch.crypto.ed25519 import Ed25519Verifier, make_verifier
 from plenum_tpu_torch.utils.base58 import b58decode
@@ -100,6 +101,7 @@ class CoreAuthNr:
             raise InvalidSignature(f"request {request.req_id} failed auth")
         return list(request.all_signatures())
 
+    @RECORDER.spanning(AUTH)
     def submit_batch(self, requests: Sequence[Request]):
         """Stage ONE device dispatch for all signatures of all requests;
         returns an opaque token for collect_batch. The dispatch is
@@ -122,6 +124,7 @@ class CoreAuthNr:
         vtoken = self.verifier.submit_batch(items) if items else None
         return (spans, hard_fail, vtoken, len(requests))
 
+    @RECORDER.spanning(AUTH)
     def collect_batch(self, token, wait: bool = True) -> Optional[np.ndarray]:
         """-> bool[N] verdicts, or None if wait=False and the device is
         still computing. A request passes only if EVERY signer's signature

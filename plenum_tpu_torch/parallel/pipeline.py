@@ -81,6 +81,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from plenum_tpu_torch.common import tracing
+from plenum_tpu_torch.common.host_spans import BLS, NONE, RECORDER, RING
 from plenum_tpu_torch.common.metrics import MetricsName, percentile
 from plenum_tpu_torch.crypto.ed25519 import (CpuEd25519Verifier,
                                              Ed25519Verifier,
@@ -804,6 +805,8 @@ class CryptoPipeline:
             if n_unresolved > 0:
                 self._unresolved[key] = n_unresolved
         t_done = self._now()
+        if RECORDER.on:
+            RECORDER.note_wave(t_done - (wave.t_first or t_done))
         if self.controller is not None:
             self.controller.note_wave(
                 (wave.t_packed or t_done) - (wave.t_first or t_done),
@@ -825,11 +828,14 @@ class CryptoPipeline:
         return self._ring_flush_due(self._ed_staged,
                                     self._ed_first_staged)
 
+    @RECORDER.spanning(RING, NONE)
     def service(self, force: bool = False) -> bool:
         """The pump: poll the in-flight wave, promote the packed one, pack
         the next from the ring. Called from the node prod loop, every
         non-blocking collect, and `flush()` (force=True dispatches partial
-        waves immediately). -> True when anything progressed."""
+        waves immediately). -> True when anything progressed. The ring's
+        work is shared, so its host spans (`ring`, and `bls` for the BLS
+        flush) run for no node."""
         progressed = False
         if self._ed_inflight is not None:
             try:
@@ -885,6 +891,7 @@ class CryptoPipeline:
         token.verdicts = out
         return True
 
+    @RECORDER.spanning(RING, NONE)
     def collect_verify(self, token: _EdToken,
                        wait: bool = True) -> Optional[np.ndarray]:
         while token.verdicts is None:
@@ -927,6 +934,7 @@ class CryptoPipeline:
         self._bls_staged.append(tok)
         return tok
 
+    @RECORDER.spanning(BLS, NONE)
     def _flush_bls(self) -> bool:
         if not self._bls_staged:
             return False
@@ -977,6 +985,7 @@ class CryptoPipeline:
         self._sha_staged.append(tok)
         return tok
 
+    @RECORDER.spanning(RING, NONE)
     def _flush_sha(self) -> bool:
         if not self._sha_staged:
             return False
@@ -1090,6 +1099,7 @@ class CryptoPipeline:
             return tuple(hashlib.sha3_256(m).digest() for m in msgs)
         raise ValueError(f"unknown hlev algorithm {alg!r}")
 
+    @RECORDER.spanning(RING, NONE)
     def _flush_cmt(self) -> bool:
         if not self._cmt_staged:
             return False

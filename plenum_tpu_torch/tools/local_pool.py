@@ -82,6 +82,7 @@ def build_pool(n_nodes: int, backend: str, seed: int = 1,
     stores (convert.bootstrap_from_rows) instead of replaying the
     genesis, which at a production-size domain takes minutes."""
     from plenum_tpu_torch import convert
+    from plenum_tpu_torch.common.host_spans import instrument_pool
     from plenum_tpu_torch.common.node_messages import DOMAIN_LEDGER_ID, Reply
     from plenum_tpu_torch.common.timer import QueueTimer
     from plenum_tpu_torch.common.tracing import Tracer
@@ -182,6 +183,10 @@ def build_pool(n_nodes: int, backend: str, seed: int = 1,
                 (time.perf_counter(), msg, client)),
             config=config, tracer=tracer)
     net.connect_all()
+    # host spans by layer (common/host_spans.py): one attribute check a
+    # call until a torch profiler session records or an operator enables
+    # the recorder
+    instrument_pool(nodes, timer, net)
     return (names, nodes, timer, trustee, replies, Reply, DOMAIN_LEDGER_ID,
             plane, net)
 
