@@ -22,7 +22,10 @@ around a `perf_counter` stamp, so that `export_chrome_trace` can lay the
 spans over the profiler's own trace. A new session resets the totals and
 the buffer; the last session's figures stay readable after it ends, and
 a profiler session ends for the recorder at the first top-level span
-after the profiler stopped.
+after the profiler stopped. A validator in its own process
+(`tools/start_node`) serves sessions on signals instead
+(`serve_sessions`), and the crypto service's own spans (layer `svc`) record
+between `enable()` and `disable()` in its process.
 
 Totals (self seconds and span count by layer, the ring's wave counter)
 are kept for every span while the recorder is on. Raw spans go to a
@@ -40,6 +43,8 @@ from __future__ import annotations
 
 import functools
 import json
+import os
+import signal
 import sys
 import threading
 import time
@@ -47,9 +52,12 @@ from array import array
 from typing import Callable, Optional
 
 LAYERS = ("loop", "node", "threepc", "bls", "execution", "durable", "auth",
-          "serde", "ring")
-(LOOP, NODE, THREEPC, BLS, EXECUTION, DURABLE, AUTH, SERDE,
- RING) = range(len(LAYERS))
+          "serde", "ring", "transport", "svc")
+(LOOP, NODE, THREEPC, BLS, EXECUTION, DURABLE, AUTH, SERDE, RING, TRANSPORT,
+ SVC) = range(len(LAYERS))
+# the layers only a node or crypto host in its own process runs: no
+# co-hosted pool (instrument_pool) opens them
+PROCESS_LAYERS = ("transport", "svc")
 
 # a span's node: NONE for shared work, INHERIT for its parent's
 NONE, INHERIT = -1, -2
@@ -98,6 +106,34 @@ class _Thread:
         self.parent = array("i")        # row of the parent, -1 top-level
         self.start = array("d")
         self.end = array("d")
+
+
+class _Block:
+    """A span over a `with` block (HostSpans.span)."""
+
+    __slots__ = ("rec", "layer", "node", "entry")
+
+    def __init__(self, rec, layer: int, node: int):
+        self.rec, self.layer, self.node = rec, layer, node
+
+    def __enter__(self):
+        self.entry = self.rec.begin(self.layer, self.node)
+
+    def __exit__(self, *exc):
+        self.rec.end(self.entry)
+
+
+class _NoBlock:
+    __slots__ = ()
+
+    def __enter__(self):
+        pass
+
+    def __exit__(self, *exc):
+        pass
+
+
+_NO_SPAN = _NoBlock()
 
 
 class HostSpans:
@@ -277,6 +313,13 @@ class HostSpans:
                     on_end(dur)
         return functools.update_wrapper(spanned, fn)
 
+    def span(self, layer: int, node: int = INHERIT):
+        """`with rec.span(layer):` a span of the block while the recorder
+        is on; off, a shared object whose enter and exit do nothing."""
+        if not self.on:
+            return _NO_SPAN
+        return _Block(self, layer, node)
+
     def wrap_delivery(self, fn: Callable) -> Callable:
         """A `node` span for fn(msg, frm, dst), run for the node dst."""
         rec = self
@@ -443,20 +486,123 @@ def instrument_pool(nodes: dict, timer, net,
         node.prod = rec.wrap_top(
             node.prod, rec.node_id(name),
             lambda s, n=node: n.metrics.add_event(MetricsName.PROD_TIME, s))
-        for attr in ("_service_client_msgs", "_service_propagates",
-                     "_reply_batch"):
-            setattr(node, attr, rec.wrap(getattr(node, attr), NODE))
-        node.propagator.flush_outbox = rec.wrap(node.propagator.flush_outbox,
-                                                NODE)
-        node._service_ordered = rec.wrap(node._service_ordered, DURABLE)
-        node.replicas.service_all = rec.wrap(node.replicas.service_all,
-                                             THREEPC)
-        _span_bus(rec, node.node_bus)
-        for replica in node.replicas:
-            _span_replica(rec, replica)
-        make = node.replicas._make
-        node.replicas._make = lambda inst_id, make=make: _span_replica(
-            rec, make(inst_id))
+        _span_node(rec, node)
+
+
+def _span_node(rec: HostSpans, node) -> None:
+    """A Node's spans below its prod (instrument_pool's list)."""
+    for attr in ("_service_client_msgs", "_service_propagates",
+                 "_reply_batch"):
+        setattr(node, attr, rec.wrap(getattr(node, attr), NODE))
+    node.propagator.flush_outbox = rec.wrap(node.propagator.flush_outbox,
+                                            NODE)
+    node._service_ordered = rec.wrap(node._service_ordered, DURABLE)
+    node.replicas.service_all = rec.wrap(node.replicas.service_all, THREEPC)
+    _span_bus(rec, node.node_bus)
+    for replica in node.replicas:
+        _span_replica(rec, replica)
+    make = node.replicas._make
+    node.replicas._make = lambda inst_id, make=make: _span_replica(
+        rec, make(inst_id))
+
+
+def _span_transport(rec: HostSpans, node_stack, client_stack,
+                    node: int) -> None:
+    """The `transport` layer of a node's TCP stacks (network/tcp_stack.py,
+    network/sealed_client.py): the node stack's send handler (each message
+    packed once and queued per peer), its flush (each peer's queue packed
+    into one frame, sealed with ChaCha20-Poly1305 and written), the opening
+    of every received frame, the client stack's frame writes (sealed on a
+    sealed connection) and the opening of each sealed client frame. The
+    packing inside is `serde`."""
+    bus = node_stack.bus
+    bus._send_handler = rec.wrap(bus._send_handler, TRANSPORT, node)
+    node_stack._flush = rec.wrap(node_stack._flush, TRANSPORT, node)
+    install = node_stack._install_session
+
+    def install_session(peer, sess, reader):
+        sess.decrypt = rec.wrap(sess.decrypt, TRANSPORT, node)
+        return install(peer, sess, reader)
+    node_stack._install_session = install_session
+    client_stack._send_packed = rec.wrap(client_stack._send_packed,
+                                         TRANSPORT, node)
+    if hasattr(client_stack, "_open"):
+        client_stack._open = rec.wrap(client_stack._open, TRANSPORT, node)
+
+
+def instrument_node_process(prodable, rec: Optional[HostSpans] = None):
+    """Spans for a validator in its own process (tools/start_node.py): a
+    Prodable holding one Node, its TcpStack and its ClientStack.
+
+    loop       the Prodable's prod (timer, both stacks' drains, Node.prod)
+    node       each stack's drain (delivery into the node) and the spans
+               instrument_pool gives a Node below its prod
+    transport  _span_transport's list
+    the rest   as instrument_pool: threepc, bls, execution, durable
+
+    -> the wrapped prod."""
+    rec = RECORDER if rec is None else rec
+    node = prodable.node
+    nid = rec.node_id(node.name)
+    prodable.prod = rec.wrap_top(prodable.prod, nid)
+    for stack in (prodable.node_stack, prodable.client_stack):
+        stack.drain = rec.wrap(stack.drain, NODE, nid)
+    _span_node(rec, node)
+    _span_transport(rec, prodable.node_stack, prodable.client_stack, nid)
+    return prodable.prod
+
+
+def serve_sessions(prodable, path: str, rec: Optional[HostSpans] = None,
+                   signals=(signal.SIGUSR1, signal.SIGUSR2)):
+    """Span sessions on request in a node process: instrument it, then
+    open a session at the first prod after signals[0] and close it at the
+    first prod after signals[1], writing the session's figures to `path`
+    (JSON, replaced whole): session() plus the node's name, the 3PC
+    batches it ordered in the session (its audit ledger's growth, one txn
+    a batch), its domain ledger's growth and the session's length in
+    seconds. Off, each prod pays one list check. signals=None installs no
+    handler. -> request(open: bool), what a signal calls."""
+    from plenum_tpu_torch.common.node_messages import (AUDIT_LEDGER_ID,
+                                                       DOMAIN_LEDGER_ID)
+    rec = RECORDER if rec is None else rec
+    top = instrument_node_process(prodable, rec)
+    node = prodable.node
+    wanted: list = []
+    start: dict = {}
+
+    def sizes() -> tuple:
+        db = node.c.db
+        return (db.get_ledger(AUDIT_LEDGER_ID).size,
+                db.get_ledger(DOMAIN_LEDGER_ID).size, time.perf_counter())
+
+    def apply(open_: bool) -> None:
+        if open_:
+            rec.enable()
+            start["at"] = sizes()
+            return
+        rec.disable()
+        if "at" not in start:
+            return
+        (a0, d0, t0), (a1, d1, t1) = start.pop("at"), sizes()
+        out = dict(rec.session(), node=node.name, batches=a1 - a0,
+                   txns=d1 - d0, seconds=t1 - t0)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(out, fh)
+        os.replace(tmp, path)
+
+    def prod():
+        if wanted:
+            apply(wanted.pop(0))
+        return top()
+    prodable.prod = prod
+
+    def request(open_: bool) -> None:
+        wanted.append(open_)
+    if signals is not None:
+        signal.signal(signals[0], lambda s, f: request(True))
+        signal.signal(signals[1], lambda s, f: request(False))
+    return request
 
 
 RECORDER = HostSpans()

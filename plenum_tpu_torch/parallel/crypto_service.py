@@ -55,6 +55,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from plenum_tpu_torch.common.host_spans import RECORDER as _SPANS
+from plenum_tpu_torch.common.host_spans import SVC as _SVC
 from plenum_tpu_torch.common.serialization import pack, unpack
 from plenum_tpu_torch.crypto.ed25519 import Ed25519Verifier, VerifyItem
 
@@ -94,8 +96,14 @@ class CryptoPlaneServer:
         # (attacker-supplied keys must not grow it without bound)
         self._cache: dict[bytes, bool] = {}
         self._cache_size = cache_size
+        # queued_jobs/queue_wait_s: client batches the worker took off its
+        # queue and their summed wait from arrival to that take (into a
+        # wave, or answered from the cache); dispatched_keys: the distinct
+        # public keys of each landed dispatch, summed
         self.stats = {"batches": 0, "items": 0, "cache_hits": 0,
-                      "dispatches": 0, "dispatched_items": 0}
+                      "dispatches": 0, "dispatched_items": 0,
+                      "dispatched_keys": 0,
+                      "queued_jobs": 0, "queue_wait_s": 0.0}
         self._server = None
         self._worker: Optional[threading.Thread] = None
         self._stop = threading.Event()
@@ -203,6 +211,7 @@ class CryptoPlaneServer:
                 # honest width is the batch, not the distinct digests
                 self.stats["dispatched_items"] += wave.get(
                     "width", len(wave["todo"]))
+                self.stats["dispatched_keys"] += wave["keys"]
                 new = {d: bool(verdicts[i])
                        for d, i in wave["todo"].items()}
                 recent[wave["seq"]] = new
@@ -254,19 +263,30 @@ class CryptoPlaneServer:
                 self.stats["overlapped"] = self.stats.get(
                     "overlapped", 0) + 1
             waves.append({"seq": seq, "token": token, "todo": todo,
-                          "width": len(batch), "jobs": [(done, plan)]})
+                          "width": len(batch), "jobs": [(done, plan)],
+                          "keys": len({it[2] for it in batch})})
             while len(waves) > self._MAX_IN_FLIGHT:
                 _land(block=True)
 
         def _cycle() -> None:
-            while waves and _land(block=False):
-                pass
+            with _SPANS.span(_SVC):
+                while waves and _land(block=False):
+                    pass
             try:
                 first = self._q.get(timeout=0.2 if not waves else 0.002)
             except queue.Empty:
                 return
+            with _SPANS.span(_SVC):
+                _take(first)
+
+        def _take(first) -> None:
+            """The host work of one wave: the queued jobs, their cache
+            hits and plan, the dispatch (a `svc` span)."""
             nonlocal next_seq
             jobs = self._drain(first)   # coalesce everything queued
+            now = time.perf_counter()
+            self.stats["queued_jobs"] += len(jobs)
+            self.stats["queue_wait_s"] += sum(now - j[4] for j in jobs)
             for j in jobs:
                 if j[3]:
                     _dispatch_raw(j[0], j[1], j[2])
@@ -277,7 +297,7 @@ class CryptoPlaneServer:
             todo: dict[bytes, int] = {}
             items: list[VerifyItem] = []
             wave_jobs: list = []
-            for done, batch, digests, _ in jobs:
+            for done, batch, digests, _, _ in jobs:
                 self.stats["items"] += len(batch)
                 plan: list = []
                 dep = 0
@@ -328,7 +348,8 @@ class CryptoPlaneServer:
                 self.stats["overlapped"] = self.stats.get(
                     "overlapped", 0) + 1
             waves.append({"seq": seq, "token": token, "todo": todo,
-                          "jobs": wave_jobs})
+                          "jobs": wave_jobs,
+                          "keys": len({it[2] for it in items})})
             while len(waves) > self._MAX_IN_FLIGHT:
                 _land(block=True)
 
@@ -430,7 +451,7 @@ class CryptoPlaneServer:
                     self._q.put((lambda result, f=fut:
                                  loop.call_soon_threadsafe(_resolve, f,
                                                            result),
-                                 items, digests, True))
+                                 items, digests, True, time.perf_counter()))
                     result = await fut
                     if isinstance(result, str):    # compile/dispatch died
                         payload = pack({"id": rid, "error":
@@ -464,13 +485,17 @@ class CryptoPlaneServer:
                                 "verdicts": [int(v) for v in results]})
             else:
                 rid = req["id"]
-                batch = [(bytes(m), bytes(s), bytes(v))
-                         for m, s, v in req["items"]]
-                digests = [_digest(*it) for it in batch]
-                fut = loop.create_future()
-                self._q.put((lambda result, f=fut:
-                             loop.call_soon_threadsafe(_resolve, f, result),
-                             batch, digests, bool(req.get("wave"))))
+                arrived = time.perf_counter()
+                with _SPANS.span(_SVC):
+                    batch = [(bytes(m), bytes(s), bytes(v))
+                             for m, s, v in req["items"]]
+                    digests = [_digest(*it) for it in batch]
+                    fut = loop.create_future()
+                    self._q.put((lambda result, f=fut:
+                                 loop.call_soon_threadsafe(_resolve, f,
+                                                           result),
+                                 batch, digests, bool(req.get("wave")),
+                                 arrived))
                 result = await fut
                 if isinstance(result, str):      # backend failure
                     payload = pack({"id": rid, "error": result})

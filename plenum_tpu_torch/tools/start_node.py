@@ -65,8 +65,8 @@ def build_node(name: str, base_dir: str, backend: str = "cuda",
     from plenum_tpu_torch.common.node_messages import POOL_LEDGER_ID
     from plenum_tpu_torch.common.timer import QueueTimer
     from plenum_tpu_torch.config import load_config
-    from plenum_tpu_torch.network.tcp_stack import (ClientStack, NodeRegistry,
-                                              TcpStack)
+    from plenum_tpu_torch.network.sealed_client import SealedClientStack
+    from plenum_tpu_torch.network.tcp_stack import NodeRegistry, TcpStack
     from plenum_tpu_torch.node import Node, NodeBootstrap
     from plenum_tpu_torch.node.looper import Prodable
     from plenum_tpu_torch.tools.genesis import load_genesis_files
@@ -148,10 +148,13 @@ def build_node(name: str, base_dir: str, backend: str = "cuda",
     logging.getLogger().addHandler(lh)
     node_stack = TcpStack(name, my_ha[0], my_ha[1], registry,
                           seed=bytes.fromhex(keys["seed"]))
-    client_stack = ClientStack(name, my_client_ha[0], my_client_ha[1],
-                               on_request=None,
-                               max_connections=config.MAX_CONNECTED_CLIENTS,
-                               idle_timeout=config.CLIENT_CONN_IDLE_TIMEOUT)
+    # the client port seals any connection that asks for it under the
+    # node's key, as the reference's CurveZMQ client stack does
+    client_stack = SealedClientStack(
+        name, my_client_ha[0], my_client_ha[1], on_request=None,
+        seed=bytes.fromhex(keys["seed"]),
+        max_connections=config.MAX_CONNECTED_CLIENTS,
+        idle_timeout=config.CLIENT_CONN_IDLE_TIMEOUT)
     # flight recorder: per-digest span ring + anomaly auto-dumps next to
     # the keys (<node>/<node>-flight-N.json). clock_domain="wall": each
     # OS process runs its own perf_counter epoch, so the tracer anchors
@@ -260,6 +263,11 @@ def main(argv=None):
 
     prodable, node, _ = build_node(args.name, args.base_dir, args.backend,
                                    args.kv, record=args.record)
+    # host-span sessions on request: SIGUSR1 opens one, SIGUSR2 closes it
+    # and writes its figures next to the keys (common/host_spans.py)
+    from plenum_tpu_torch.common.host_spans import serve_sessions
+    serve_sessions(prodable, os.path.join(args.base_dir, args.name,
+                                          "host_spans.json"))
     import signal as _signal
     profiler = None
     if args.profile:

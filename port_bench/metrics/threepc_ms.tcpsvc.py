@@ -1,0 +1,10 @@
+"""Host ms per 3PC batch in the `threepc` layer: its self time in the
+program's host spans, four node processes summed over their sessions in
+the traced window, over Node1's 3PC batches in its session. The layer:
+Replicas.service_all and the consensus services' message handlers
+(ordering, checkpoint, view change)."""
+from port_bench.tcpsvc_metrics import node_ms_per_batch
+
+
+def read(run):
+    return node_ms_per_batch(run, "threepc")

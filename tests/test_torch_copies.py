@@ -134,6 +134,67 @@ UNDONE = {
         ("supervised=not args.no_supervisor)",
          "supervised=False if args.no_supervisor else None)"),
         ("(cpu | cuda | cuda-sharded via", "(cpu | jax | jax-sharded via"),
+        # host spans (layer svc) and the queue's wait counters, read by
+        # the stats op
+        ("from plenum_tpu_torch.common.host_spans import RECORDER as _SPANS\n"
+         "from plenum_tpu_torch.common.host_spans import SVC as _SVC\n", ""),
+        ("        # queued_jobs/queue_wait_s: client batches the worker took "
+         "off its\n        # queue and their summed wait from arrival to "
+         "that take (into a\n        # wave, or answered from the cache); "
+         "dispatched_keys: the distinct\n        # public keys of each "
+         "landed dispatch, summed\n", ""),
+        ('                      "dispatches": 0, "dispatched_items": 0,\n'
+         '                      "dispatched_keys": 0,\n'
+         '                      "queued_jobs": 0, "queue_wait_s": 0.0}\n',
+         '                      "dispatches": 0, "dispatched_items": 0}\n'),
+        ('                self.stats["dispatched_keys"] += wave["keys"]\n', ""),
+        ('"jobs": [(done, plan)],\n'
+         '                          "keys": len({it[2] for it in batch})})',
+         '"jobs": [(done, plan)]})'),
+        ('"jobs": wave_jobs,\n'
+         '                          "keys": len({it[2] for it in items})})',
+         '"jobs": wave_jobs})'),
+        ("            with _SPANS.span(_SVC):\n"
+         "                while waves and _land(block=False):\n"
+         "                    pass\n",
+         "            while waves and _land(block=False):\n"
+         "                pass\n"),
+        ("            with _SPANS.span(_SVC):\n"
+         "                _take(first)\n\n"
+         "        def _take(first) -> None:\n"
+         '            """The host work of one wave: the queued jobs, their '
+         'cache\n            hits and plan, the dispatch (a `svc` span)."""\n',
+         ""),
+        ("            now = time.perf_counter()\n"
+         '            self.stats["queued_jobs"] += len(jobs)\n'
+         '            self.stats["queue_wait_s"] += sum(now - j[4] for j in '
+         "jobs)\n", ""),
+        ("for done, batch, digests, _, _ in jobs:",
+         "for done, batch, digests, _ in jobs:"),
+        ("items, digests, True, time.perf_counter()))",
+         "items, digests, True))"),
+        ("                arrived = time.perf_counter()\n"
+         "                with _SPANS.span(_SVC):\n"
+         "                    batch = [(bytes(m), bytes(s), bytes(v))\n"
+         "                             for m, s, v in req[\"items\"]]\n"
+         "                    digests = [_digest(*it) for it in batch]\n"
+         "                    fut = loop.create_future()\n"
+         "                    self._q.put((lambda result, f=fut:\n"
+         "                                 loop.call_soon_threadsafe(_resolve, "
+         "f,\n"
+         "                                                           result),\n"
+         "                                 batch, digests, "
+         "bool(req.get(\"wave\")),\n"
+         "                                 arrived))\n",
+         "                batch = [(bytes(m), bytes(s), bytes(v))\n"
+         "                         for m, s, v in req[\"items\"]]\n"
+         "                digests = [_digest(*it) for it in batch]\n"
+         "                fut = loop.create_future()\n"
+         "                self._q.put((lambda result, f=fut:\n"
+         "                             loop.call_soon_threadsafe(_resolve, f, "
+         "result),\n"
+         "                             batch, digests, "
+         "bool(req.get(\"wave\"))))\n"),
         ("[--backend cpu|cuda|cuda-sharded]", "[--backend cpu|jax|jax-sharded]"),
         ('choices=["cpu", "cuda", "cuda-sharded",\n'
          '                             "torch", "torch-sharded"])',
@@ -200,6 +261,31 @@ UNDONE = {
          "        verifier = warm_up(make_verifier(\"cuda\", "
          "supervised=True))\n", ""),
         ("        verifier=verifier,\n", ""),
+        # host-span sessions on SIGUSR1/SIGUSR2 (common/host_spans.py)
+        # the client port seals the connections that ask for it
+        # (network/sealed_client.py)
+        ("    from plenum_tpu_torch.network.sealed_client import "
+         "SealedClientStack\n"
+         "    from plenum_tpu_torch.network.tcp_stack import NodeRegistry, "
+         "TcpStack\n",
+         "    from plenum_tpu_torch.network.tcp_stack import (ClientStack, "
+         "NodeRegistry,\n                                              "
+         "TcpStack)\n"),
+        ("    # the client port seals any connection that asks for it under "
+         "the\n    # node's key, as the reference's CurveZMQ client stack "
+         "does\n    client_stack = SealedClientStack(\n"
+         "        name, my_client_ha[0], my_client_ha[1], on_request=None,\n"
+         "        seed=bytes.fromhex(keys[\"seed\"]),\n",
+         "    client_stack = ClientStack(name, my_client_ha[0], "
+         "my_client_ha[1],\n                               "
+         "on_request=None,\n"),
+        ("    # host-span sessions on request: SIGUSR1 opens one, SIGUSR2 "
+         "closes it\n    # and writes its figures next to the keys "
+         "(common/host_spans.py)\n"
+         "    from plenum_tpu_torch.common.host_spans import serve_sessions\n"
+         "    serve_sessions(prodable, os.path.join(args.base_dir, args.name,\n"
+         "                                          \"host_spans.json\"))\n",
+         ""),
         ('    ap.add_argument("--backend", default="cuda",\n'
          '                    choices=["cpu", "cuda", "service", "torch"])',
          '    ap.add_argument("--backend", default="cpu",\n'
