@@ -559,9 +559,10 @@ def serve_sessions(prodable, path: str, rec: Optional[HostSpans] = None,
     first prod after signals[1], writing the session's figures to `path`
     (JSON, replaced whole): session() plus the node's name, the 3PC
     batches it ordered in the session (its audit ledger's growth, one txn
-    a batch), its domain ledger's growth and the session's length in
-    seconds. Off, each prod pays one list check. signals=None installs no
-    handler. -> request(open: bool), what a signal calls."""
+    a batch), its domain ledger's growth, the hash-store reads its domain
+    tree made building audit paths (`proof_reads`) and the session's
+    length in seconds. Off, each prod pays one list check. signals=None
+    installs no handler. -> request(open: bool), what a signal calls."""
     from plenum_tpu_torch.common.node_messages import (AUDIT_LEDGER_ID,
                                                        DOMAIN_LEDGER_ID)
     rec = RECORDER if rec is None else rec
@@ -572,8 +573,9 @@ def serve_sessions(prodable, path: str, rec: Optional[HostSpans] = None,
 
     def sizes() -> tuple:
         db = node.c.db
-        return (db.get_ledger(AUDIT_LEDGER_ID).size,
-                db.get_ledger(DOMAIN_LEDGER_ID).size, time.perf_counter())
+        domain = db.get_ledger(DOMAIN_LEDGER_ID)
+        return (db.get_ledger(AUDIT_LEDGER_ID).size, domain.size,
+                domain.tree.proof_reads, time.perf_counter())
 
     def apply(open_: bool) -> None:
         if open_:
@@ -583,9 +585,9 @@ def serve_sessions(prodable, path: str, rec: Optional[HostSpans] = None,
         rec.disable()
         if "at" not in start:
             return
-        (a0, d0, t0), (a1, d1, t1) = start.pop("at"), sizes()
+        (a0, d0, r0, t0), (a1, d1, r1, t1) = start.pop("at"), sizes()
         out = dict(rec.session(), node=node.name, batches=a1 - a0,
-                   txns=d1 - d0, seconds=t1 - t0)
+                   txns=d1 - d0, proof_reads=r1 - r0, seconds=t1 - t0)
         tmp = path + ".tmp"
         with open(tmp, "w") as fh:
             json.dump(out, fh)

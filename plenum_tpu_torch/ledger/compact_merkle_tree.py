@@ -12,6 +12,11 @@ list is that recursion's right spine.
 `extend_batch` is the device entry point: leaf hashes for a whole 3PC batch are
 computed in one device call, and each interior level's new nodes in one more
 (SURVEY.md §2.1 "vectorized SHA-256 Merkle appends").
+
+The tree keeps its latest append wave: every leaf and interior hash the last
+extend computed, keyed (level, index). `inclusion_proofs` builds a committed
+batch's audit paths in one pass from it, so the hash store is read only for
+nodes older than the wave; `proof_reads` counts those reads.
 """
 from __future__ import annotations
 
@@ -23,10 +28,7 @@ from .tree_hasher import TreeHasher
 
 def _largest_pow2_below(n: int) -> int:
     assert n >= 2
-    k = 1
-    while k * 2 < n:
-        k *= 2
-    return k
+    return 1 << ((n - 1).bit_length() - 1)
 
 
 class CompactMerkleTree:
@@ -38,6 +40,11 @@ class CompactMerkleTree:
         # peaks[i] = root of a complete subtree; sizes strictly decreasing
         # powers of two summing to tree_size, leftmost first.
         self._peaks: list[bytes] = []
+        # the latest append wave, (level, index) -> hash: every leaf and
+        # interior node the last extend computed; each extend replaces it
+        self._wave: dict[tuple[int, int], bytes] = {}
+        # hash-store reads made while building audit paths
+        self.proof_reads = 0
 
     # --- appends ----------------------------------------------------------
 
@@ -56,8 +63,10 @@ class CompactMerkleTree:
     def _extend_hashes(self, leaf_hashes: list[bytes]) -> None:
         store = self.hash_store
         base = self.tree_size
+        wave: dict[tuple[int, int], bytes] = {}
         for i, h in enumerate(leaf_hashes):
             store.put_leaf(base + i, h)
+            wave[(0, base + i)] = h
         # Level-by-level: nodes of level k+1 whose children (level k) are now
         # all present. One batched hash call per level — the device path.
         level = 0
@@ -73,7 +82,7 @@ class CompactMerkleTree:
         fused = getattr(self.hasher, "hash_wave_levels", None)
         if fused is not None and len(leaf_hashes) >= 2:
             state = self._extend_fused(fused, level, level_start,
-                                       level_count, new_at_level)
+                                       level_count, new_at_level, wave)
             if state is not None:
                 level, level_start, level_count, new_at_level = state
         while level_count >= 2:
@@ -93,15 +102,17 @@ class CompactMerkleTree:
             for pi, h in zip(idxs, parents):
                 store.put_node(level + 1, pi, h)
                 new_parent[pi] = h
+                wave[(level + 1, pi)] = h
             level += 1
             level_start = parent_first
             level_count = parent_count
             new_at_level = new_parent
         self.tree_size += len(leaf_hashes)
-        self._peaks = self._compute_peaks(self.tree_size)
+        self._wave = wave
+        self._peaks = self._compute_peaks(self.tree_size, base)
 
     def _extend_fused(self, fused, level, level_start, level_count,
-                      new_at_level):
+                      new_at_level, wave):
         """Run the wide levels of one append wave through the hasher's
         fused device program; -> the per-level loop's continuation state,
         or None when the fused path declines (small wave / missing
@@ -152,41 +163,65 @@ class CompactMerkleTree:
             for j, h in enumerate(parents):
                 store.put_node(out_level + 1, starts[l] + j, h)
                 new_parent[starts[l] + j] = h
+                wave[(out_level + 1, starts[l] + j)] = h
             out_level += 1
             ls2, cnt2 = starts[l], cnt2 // 2
         return out_level, ls2, cnt2, new_parent
 
     def _level_hash(self, level: int, idx: int) -> bytes:
-        if level == 0:
-            return self.hash_store.get_leaf(idx)
-        h = self.hash_store.try_get_node(level, idx)
+        """Node (level, idx) for an extend: a peak of the current size from
+        the peaks list (the one old node each level of a wave pairs with,
+        its left boundary, always is one), else the store's."""
+        above = self.tree_size >> level
+        if above & 1 and idx == above - 1:
+            return self._peaks[bin(above >> 1).count("1")]
+        h = self._stored(level, idx)
         if h is None:
             raise KeyError((level, idx))
         return h
 
-    def _range_root(self, lo: int, hi: int) -> bytes:
-        """MTH of leaves [lo, hi): uses stored complete nodes, recursing on the
-        (right-edge) incomplete ranges."""
-        n = hi - lo
-        assert n >= 1
-        if n == 1:
-            return self.hash_store.get_leaf(lo)
-        # complete aligned subtree?
-        if n & (n - 1) == 0 and lo % n == 0:
-            level = n.bit_length() - 1
-            h = self.hash_store.try_get_node(level, lo >> level)
+    def _stored(self, level: int, idx: int) -> Optional[bytes]:
+        if level == 0:
+            return self.hash_store.get_leaf(idx)
+        return self.hash_store.try_get_node(level, idx)
+
+    def _range_root(self, lo: int, hi: int, memo=None) -> bytes:
+        """MTH of leaves [lo, hi): complete aligned subtrees from the wave,
+        else the store, recursing on the (right-edge) incomplete ranges.
+        With `memo`, one proof-building call's (lo, hi) -> hash, each range
+        is resolved once and each hash-store read counts in
+        `proof_reads`."""
+        if memo is not None:
+            h = memo.get((lo, hi))
             if h is not None:
                 return h
-        k = _largest_pow2_below(n)
-        return self.hasher.hash_children(self._range_root(lo, lo + k),
-                                         self._range_root(lo + k, hi))
+        n = hi - lo
+        assert n >= 1
+        h = None
+        if n & (n - 1) == 0 and lo % n == 0:
+            level = n.bit_length() - 1
+            h = self._wave.get((level, lo >> level))
+            if h is None:
+                if memo is not None:
+                    self.proof_reads += 1
+                h = self._stored(level, lo >> level)
+        if h is None:
+            k = _largest_pow2_below(n)
+            h = self.hasher.hash_children(self._range_root(lo, lo + k, memo),
+                                          self._range_root(lo + k, hi, memo))
+        if memo is not None:
+            memo[(lo, hi)] = h
+        return h
 
-    def _compute_peaks(self, size: int) -> list[bytes]:
-        peaks = []
-        lo = 0
+    def _compute_peaks(self, size: int, old_size: int = 0) -> list[bytes]:
+        """The size-`size` tree's peaks. Those within the first `old_size`
+        leaves are the current peaks of that size, which the two sizes'
+        binary forms share; the rest come from the wave first."""
+        peaks, lo = [], 0
         while size > 0:
             p = 1 << (size.bit_length() - 1)
-            peaks.append(self._range_root(lo, lo + p))
+            peaks.append(self._peaks[len(peaks)] if lo + p <= old_size
+                         else self._range_root(lo, lo + p))
             lo += p
             size -= p
         return peaks
@@ -214,16 +249,35 @@ class CompactMerkleTree:
         if not (0 <= m < n <= self.tree_size):
             raise ValueError(f"leaf {m} out of range for size {n} "
                              f"(tree has {self.tree_size})")
-        return self._path(m, 0, n)
+        return self.inclusion_proofs(m, m + 1, n)[0]
 
-    def _path(self, m: int, lo: int, hi: int) -> list[bytes]:
-        n = hi - lo
-        if n == 1:
-            return []
-        k = _largest_pow2_below(n)
-        if m - lo < k:
-            return self._path(m, lo, lo + k) + [self._range_root(lo + k, hi)]
-        return self._path(m, lo + k, hi) + [self._range_root(lo, lo + k)]
+    def inclusion_proofs(self, first: int, last: int,
+                         n: Optional[int] = None) -> list[list[bytes]]:
+        """Audit paths of leaves [first, last) in the size-n tree, each
+        equal to inclusion_proof(m, n), in one pass: a walk down the RFC's
+        recursion into the subtrees that hold those leaves, each sibling
+        root resolved once (from the wave, for a batch just appended) and
+        shared by every path below it."""
+        n = self.tree_size if n is None else n
+        if not (0 <= first <= last <= n <= self.tree_size):
+            raise ValueError(f"leaves {first}..{last} out of range for size "
+                             f"{n} (tree has {self.tree_size})")
+        memo: dict[tuple[int, int], bytes] = {}
+        root = self._range_root
+        paths: list[list[bytes]] = []
+
+        def walk(lo: int, hi: int, above: list[bytes]) -> None:
+            if hi - lo == 1:
+                paths.append(above)
+                return
+            k = lo + _largest_pow2_below(hi - lo)
+            if first < k:
+                walk(lo, k, [root(k, hi, memo)] + above)
+            if last > k:
+                walk(k, hi, [root(lo, k, memo)] + above)
+        if first < last:
+            walk(0, n, [])
+        return paths
 
     def consistency_proof(self, m: int, n: Optional[int] = None) -> list[bytes]:
         """PROOF(m, D[n]) that the size-m tree is a prefix of the size-n tree

@@ -97,7 +97,15 @@ class Ledger:
         with self.tree.hash_store.kv.write_batch():
             self.tree.extend_batch(leaves)
         self.seq_no += len(txns)
-        return [self.merkle_info(start + 1 + i) for i in range(len(txns))]
+        # merkle_info for each txn, the audit paths built in one pass from
+        # the wave this extend just computed
+        root, size = self.root_hash.hex(), self.tree.tree_size
+        return [{"seqNo": start + 1 + i,
+                 "rootHash": root,
+                 "auditPath": [h.hex() for h in path],
+                 "treeSize": size}
+                for i, path in enumerate(
+                    self.tree.inclusion_proofs(start, start + len(txns)))]
 
     @property
     def txn_log(self) -> KeyValueStorage:

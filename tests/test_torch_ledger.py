@@ -293,3 +293,187 @@ def test_proof_range_errors_are_value_errors():
         l.commit_txns(3)
     with pytest.raises(ValueError):
         l.discard_txns(1)
+
+
+# --- a committed batch's audit paths, built in one pass ---------------------
+
+# (txns in the ledger before the batch, the batch sizes committed in turn)
+_BATCHES = {
+    "1_on_empty": (0, [1]),
+    "2_on_empty": (0, [2]),
+    "3_on_empty": (0, [3]),
+    "118_on_empty": (0, [118]),
+    "1000_on_empty": (0, [1000]),
+    "3_across_128": (126, [3]),
+    "118_across_1024": (1000, [118]),
+    "to_256_then_past": (254, [2, 1, 3]),
+    "118_after_118s": (0, [118, 118, 118]),
+}
+
+
+def _hasher(kind):
+    if kind == "hashlib":
+        return TreeHasher()
+    # the plain versions, every wave of two or more through the fused
+    # path; `fused` counts the waves it hashed
+    h = make_tree_hasher("torch", min_batch=2, fuse_min=2)
+    wave_levels, h.fused = h.hash_wave_levels, 0
+
+    def counted(*args):
+        got = wave_levels(*args)
+        h.fused += got is not None
+        return got
+    h.hash_wave_levels = counted
+    return h
+
+
+def _check_infos(ledger, infos, first_seq_no, txns):
+    """infos are merkle_info's for each txn, byte for byte, and verify."""
+    from plenum_tpu_torch.ledger.ledger import txn_to_leaf
+    v = MerkleVerifier()
+    assert infos == [ledger.merkle_info(first_seq_no + i)
+                     for i in range(len(txns))]
+    for i, (info, txn) in enumerate(zip(infos, txns)):
+        assert list(info) == ["seqNo", "rootHash", "auditPath", "treeSize"]
+        assert info["rootHash"] == ledger.root_hash.hex()
+        assert info["treeSize"] == ledger.size
+        assert v.verify_inclusion(
+            txn_to_leaf(txn), first_seq_no + i - 1, ledger.size,
+            [bytes.fromhex(h) for h in info["auditPath"]],
+            ledger.root_hash)
+
+
+@pytest.mark.parametrize("hasher", ["hashlib", "torch"])
+@pytest.mark.parametrize("case", sorted(_BATCHES))
+def test_a_batchs_infos_equal_per_leaf_merkle_info(case, hasher):
+    """append_batch and commit_txns return, for every txn, what
+    merkle_info gives, from paths built in one pass over the wave; each
+    also equals the reference's append_batch on the same txns."""
+    from plenum_tpu.ledger.ledger import Ledger as RefLedger
+    before, sizes = _BATCHES[case]
+    prefix = [_txn(i) for i in range(before)]
+    appended = Ledger(CompactMerkleTree(_hasher(hasher)))
+    staged = Ledger(CompactMerkleTree(_hasher(hasher)))
+    ref = RefLedger()
+    for l in (appended, staged, ref):
+        if prefix:
+            l.append_batch(prefix)
+    seq_no = before
+    for size in sizes:
+        txns = [_txn(seq_no + i) for i in range(size)]
+        fused = getattr(appended.tree.hasher, "fused", 0)
+        infos = appended.append_batch(txns)
+        staged.append_txns_to_uncommitted(txns)
+        committed, staged_infos = staged.commit_txns(size)
+        assert committed == txns and staged_infos == infos
+        _check_infos(appended, infos, seq_no + 1, txns)
+        # the wave: every leaf of the batch, and with two or more leaves
+        # the interior nodes the extend (fused or level by level) stored
+        wave = appended.tree._wave
+        assert {i for lv, i in wave if lv == 0} == \
+            set(range(seq_no, seq_no + size))
+        assert (size >= 2) == any(lv > 0 for lv, _ in wave)
+        if hasher == "torch":
+            assert appended.tree.hasher.fused - fused == (size >= 2)
+        assert ref.append_batch(txns) == infos
+        seq_no += size
+    assert appended.root_hash == staged.root_hash == ref.root_hash
+
+
+@pytest.mark.parametrize("hasher", ["hashlib", "torch"])
+def test_the_first_batch_after_recovery_has_no_wave_to_read(tdir, hasher):
+    """A tree recovered from a persisted store starts with an empty wave:
+    its first batch's paths read the older nodes from the store."""
+    from plenum_tpu.ledger.ledger import Ledger as RefLedger
+    prefix = [_txn(i) for i in range(130)]
+    l = Ledger(CompactMerkleTree(hash_store=HashStore(
+        KvFile(tdir + "/hs", "hashes"))), KvFile(tdir + "/log", "txns"))
+    l.append_batch(prefix)
+    l.close()
+    l2 = Ledger(CompactMerkleTree.recover(
+        _hasher(hasher), HashStore(KvFile(tdir + "/hs", "hashes"))),
+        KvFile(tdir + "/log", "txns"))
+    assert l2.size == 130 and l2.tree._wave == {}
+    txns = [_txn(130 + i) for i in range(118)]
+    l2.append_txns_to_uncommitted(txns)
+    _, infos = l2.commit_txns(118)
+    _check_infos(l2, infos, 131, txns)
+    assert l2.tree.proof_reads > 0
+    ref = RefLedger()
+    ref.append_batch(prefix)
+    assert ref.append_batch(txns) == infos
+    l2.close()
+
+
+def test_the_wave_holds_the_latest_extend_alone(tdir):
+    """Each extend replaces the wave; a fork, a recovered tree and a tree
+    rebuilt over a reset store start without one."""
+    t = CompactMerkleTree()
+    t.extend_batch([b"a%d" % i for i in range(5)])
+    t.extend_batch([b"b%d" % i for i in range(3)])
+    assert {i for lv, i in t._wave if lv == 0} == {5, 6, 7}
+    # leaves 5..7 complete nodes (1, 2), (1, 3), (2, 1) and (3, 0)
+    assert set(t._wave) == {(0, 5), (0, 6), (0, 7), (1, 2), (1, 3), (2, 1),
+                            (3, 0)}
+    assert t.fork()._wave == {}
+    assert CompactMerkleTree.recover(TreeHasher(), t.hash_store)._wave == {}
+    # a hash store ahead of the log: the ledger resets it and rebuilds
+    store = HashStore(KvMemory())
+    l = Ledger(CompactMerkleTree(hash_store=store),
+               KvFile(tdir + "/log", "txns"))
+    l.append_batch([_txn(i) for i in range(6)])
+    l._log.close()
+    store.put_leaf(6, b"\0" * 32)          # a leaf the log never got
+    l2 = Ledger(CompactMerkleTree(hash_store=store),
+                KvFile(tdir + "/log", "txns"))
+    assert l2.size == 6 and l2.root_hash == l.root_hash
+    assert {i for lv, i in l2.tree._wave if lv == 0} == set(range(6))
+    assert l2.merkle_info(6) == l.merkle_info(6)
+
+
+class _CountingKv(KvMemory):
+    """A KvMemory that counts its reads (try_get and has_key call get)."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = 0
+
+    def get(self, key):
+        self.reads += 1
+        return super().get(key)
+
+
+def test_a_batchs_infos_read_the_store_log_n_times():
+    """The infos of a 118-txn batch committed on a ~30 k-leaf tree read the
+    hash store at most 2 * ceil(log2 n) + 8 times (per-leaf paths over a
+    tree with no wave read it ~1,500 times), and proof_reads counts each
+    of those reads."""
+    import math
+    kv = _CountingKv()
+    l = Ledger(CompactMerkleTree(hash_store=HashStore(kv)))
+    size = 0
+    while size < 30_000:
+        l.append_batch([_txn(size + i) for i in range(1000)])
+        size += 1000
+    txns = [_txn(size + i) for i in range(118)]
+    l.append_txns_to_uncommitted(txns)
+    extend, at = l.tree.extend_batch, {}
+
+    def extend_then_mark(leaves):
+        extend(leaves)
+        at["reads"], at["proof_reads"] = kv.reads, l.tree.proof_reads
+    l.tree.extend_batch = extend_then_mark
+    _, infos = l.commit_txns(118)
+    n = l.size
+    reads = kv.reads - at["reads"]
+    assert 0 < reads <= 2 * math.ceil(math.log2(n)) + 8, reads
+    assert l.tree.proof_reads - at["proof_reads"] == reads
+    _check_infos(l, infos, size + 1, txns)
+    # the same paths leaf by leaf over the same store, with no wave
+    fresh = CompactMerkleTree.recover(TreeHasher(), l.tree.hash_store)
+    r0 = kv.reads
+    paths = [fresh.inclusion_proof(m) for m in range(size, n)]
+    assert paths == [[bytes.fromhex(h) for h in i["auditPath"]]
+                     for i in infos]
+    assert kv.reads - r0 > 1000
+    assert fresh.proof_reads == kv.reads - r0

@@ -251,6 +251,26 @@ def test_a_node_ships_its_session_on_request(pool):
         assert _closes(s)
 
 
+def test_a_session_counts_its_domain_trees_proof_reads(pool):
+    """Each session carries the hash-store reads its domain tree made
+    building the committed batches' audit paths: the peaks older than
+    each batch, a few a batch; proof_reads.tcpsvc sums them over Node1's
+    batches and reads None from sessions without the counter."""
+    from port_bench import spec
+    read = spec.reader("proof_reads.tcpsvc")
+    sessions = pool["sessions"]
+    for name, s in sessions.items():
+        assert 0 < s["proof_reads"] <= 16 * s["batches"], (name, s)
+    run = {"collected": {"sessions": sessions,
+                         "ordered_batches": sessions["Node1"]["batches"]}}
+    assert read(run) == sum(s["proof_reads"] for s in sessions.values()) \
+        / sessions["Node1"]["batches"]
+    older = {n: {k: v for k, v in s.items() if k != "proof_reads"}
+             for n, s in sessions.items()}
+    run["collected"]["sessions"] = older
+    assert read(run) is None
+
+
 def test_the_stores_read_back_feed_the_reference(pool):
     from port_bench import stores
     from port_bench.reference import pool_check
